@@ -31,3 +31,7 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "slow: benchmark-grade tests excluded from the tier-1 run")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card; skips (with the reason) where none is "
+        "present")

@@ -1,0 +1,578 @@
+"""Logical plan nodes.
+
+Reference parity: core/trino-main/.../sql/planner/plan/ (39 concrete
+PlanNode types, SURVEY.md Appendix A.1). Implemented here as frozen
+dataclasses whose ``output_schema`` maps symbol -> Type. Symbols are
+engine-unique strings; Batch columns at execution time are keyed by them.
+
+Node coverage this file provides vs Appendix A.1:
+TableScan, Filter, Project, Aggregation (SINGLE/PARTIAL/FINAL), Join,
+SemiJoin, Sort, TopN, Limit, Offset, DistinctLimit(= Aggregation+Limit at
+plan time), Values, Output, Union, Intersect, Except, EnforceSingleRow,
+AssignUniqueId, MarkDistinct, Window, Exchange, RemoteSource, GroupId,
+Unnest, Sample, ExplainAnalyze, TableWriter/TableFinish/Delete (DML),
+Apply/CorrelatedJoin exist only transiently inside the planner
+(decorrelation happens at plan time, reference: iterative/rule/
+TransformCorrelated*). IndexJoin/IndexSource are intentionally dropped
+(connector indexes are not part of the TPU engine's SPI).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from ..catalog import TableHandle
+from ..rex import RowExpr
+from ..types import BIGINT, BOOLEAN, Type
+
+
+class PlanNode:
+    __slots__ = ()
+
+    @property
+    def sources(self) -> Tuple["PlanNode", ...]:
+        return ()
+
+    def output_schema(self) -> Dict[str, Type]:
+        raise NotImplementedError
+
+    @property
+    def output_symbols(self) -> List[str]:
+        return list(self.output_schema())
+
+
+@dataclass(frozen=True)
+class TableScanNode(PlanNode):
+    """sql/planner/plan/TableScanNode.java. ``assignments`` maps output
+    symbol -> connector column name."""
+    handle: TableHandle
+    assignments: Dict[str, str]
+    schema: Dict[str, Type]
+
+    def output_schema(self):
+        return dict(self.schema)
+
+
+@dataclass(frozen=True)
+class FilterNode(PlanNode):
+    source: PlanNode
+    predicate: RowExpr
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    def output_schema(self):
+        return self.source.output_schema()
+
+
+@dataclass(frozen=True)
+class ProjectNode(PlanNode):
+    source: PlanNode
+    assignments: Dict[str, RowExpr]   # symbol -> expression
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    def output_schema(self):
+        return {s: e.type for s, e in self.assignments.items()}
+
+    @property
+    def is_identity(self) -> bool:
+        from ..rex import InputRef
+        return all(isinstance(e, InputRef) and e.name == s
+                   for s, e in self.assignments.items())
+
+
+@dataclass(frozen=True)
+class Aggregate:
+    """One aggregate function instance (plan/AggregationNode.Aggregation).
+    ``argument`` is an input symbol (pre-projected); None for count(*).
+    ``mask`` is a boolean input symbol from FILTER (WHERE ...) or a
+    MarkDistinct marker."""
+    kind: str                      # sum|count|count_star|min|max|avg|any_value|...
+    argument: Optional[str]
+    type: Type
+    distinct: bool = False
+    mask: Optional[str] = None
+    argument2: Optional[str] = None  # 2nd arg (min_by/corr/covar/regr)
+    param: Optional[float] = None    # constant arg (approx_percentile q)
+
+
+@dataclass(frozen=True)
+class AggregationNode(PlanNode):
+    """plan/AggregationNode.java. step: SINGLE | PARTIAL | FINAL."""
+    source: PlanNode
+    group_keys: Tuple[str, ...]
+    aggregates: Dict[str, Aggregate]     # output symbol -> aggregate
+    step: str = "SINGLE"
+    group_id_symbol: Optional[str] = None   # set when fed by GroupIdNode
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    def output_schema(self):
+        src = self.source.output_schema()
+        out = {k: src[k] for k in self.group_keys}
+        for s, a in self.aggregates.items():
+            out[s] = a.type
+        return out
+
+
+@dataclass(frozen=True)
+class GroupIdNode(PlanNode):
+    """plan/GroupIdNode.java — replicates rows per grouping set with a
+    grouping-set id column; keys absent from a set become NULL."""
+    source: PlanNode
+    grouping_sets: Tuple[Tuple[str, ...], ...]
+    all_keys: Tuple[str, ...]
+    id_symbol: str
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    def output_schema(self):
+        out = dict(self.source.output_schema())
+        out[self.id_symbol] = BIGINT
+        return out
+
+
+@dataclass(frozen=True)
+class JoinClause:
+    left: str
+    right: str
+
+
+@dataclass(frozen=True)
+class JoinNode(PlanNode):
+    """plan/JoinNode.java. join_type: inner|left|right|full|cross.
+    ``criteria`` are equi-clauses; ``filter`` is the residual non-equi
+    condition evaluated over combined columns."""
+    left: PlanNode
+    right: PlanNode
+    join_type: str
+    criteria: Tuple[JoinClause, ...] = ()
+    filter: Optional[RowExpr] = None
+    distribution: Optional[str] = None   # PARTITIONED | REPLICATED (set by optimizer)
+
+    @property
+    def sources(self):
+        return (self.left, self.right)
+
+    def output_schema(self):
+        out = dict(self.left.output_schema())
+        out.update(self.right.output_schema())
+        return out
+
+
+@dataclass(frozen=True)
+class SemiJoinNode(PlanNode):
+    """plan/SemiJoinNode.java — adds a boolean 'match' column."""
+    source: PlanNode
+    filtering_source: PlanNode
+    source_key: str
+    filtering_key: str
+    output: str
+
+    @property
+    def sources(self):
+        return (self.source, self.filtering_source)
+
+    def output_schema(self):
+        out = dict(self.source.output_schema())
+        out[self.output] = BOOLEAN
+        return out
+
+
+@dataclass(frozen=True)
+class SortKey:
+    symbol: str
+    ascending: bool = True
+    nulls_first: bool = False
+
+
+@dataclass(frozen=True)
+class SortNode(PlanNode):
+    source: PlanNode
+    keys: Tuple[SortKey, ...]
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    def output_schema(self):
+        return self.source.output_schema()
+
+
+@dataclass(frozen=True)
+class TopNNode(PlanNode):
+    source: PlanNode
+    count: int
+    keys: Tuple[SortKey, ...]
+    step: str = "SINGLE"    # SINGLE | PARTIAL | FINAL
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    def output_schema(self):
+        return self.source.output_schema()
+
+
+@dataclass(frozen=True)
+class LimitNode(PlanNode):
+    source: PlanNode
+    count: int
+    partial: bool = False
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    def output_schema(self):
+        return self.source.output_schema()
+
+
+@dataclass(frozen=True)
+class OffsetNode(PlanNode):
+    source: PlanNode
+    count: int
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    def output_schema(self):
+        return self.source.output_schema()
+
+
+@dataclass(frozen=True)
+class ValuesNode(PlanNode):
+    """plan/ValuesNode.java — rows of constant expressions."""
+    schema: Dict[str, Type]
+    rows: Tuple[Tuple[object, ...], ...]   # python values, column order
+
+    def output_schema(self):
+        return dict(self.schema)
+
+
+@dataclass(frozen=True)
+class UnionNode(PlanNode):
+    """plan/UnionNode.java; symbol_maps[i] maps output symbol -> source i
+    symbol."""
+    children: Tuple[PlanNode, ...]
+    schema: Dict[str, Type]
+    symbol_maps: Tuple[Dict[str, str], ...]
+
+    @property
+    def sources(self):
+        return self.children
+
+    def output_schema(self):
+        return dict(self.schema)
+
+
+@dataclass(frozen=True)
+class SetOpNode(PlanNode):
+    """IntersectNode / ExceptNode (distinct or all)."""
+    op: str                   # intersect | except
+    distinct: bool
+    left: PlanNode
+    right: PlanNode
+    schema: Dict[str, Type]
+    left_map: Dict[str, str]
+    right_map: Dict[str, str]
+
+    @property
+    def sources(self):
+        return (self.left, self.right)
+
+    def output_schema(self):
+        return dict(self.schema)
+
+
+@dataclass(frozen=True)
+class EnforceSingleRowNode(PlanNode):
+    """plan/EnforceSingleRowNode.java — scalar subquery cardinality."""
+    source: PlanNode
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    def output_schema(self):
+        return self.source.output_schema()
+
+
+@dataclass(frozen=True)
+class AssignUniqueIdNode(PlanNode):
+    source: PlanNode
+    symbol: str
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    def output_schema(self):
+        out = dict(self.source.output_schema())
+        out[self.symbol] = BIGINT
+        return out
+
+
+@dataclass(frozen=True)
+class MarkDistinctNode(PlanNode):
+    """plan/MarkDistinctNode.java — true on first occurrence of key."""
+    source: PlanNode
+    marker: str
+    keys: Tuple[str, ...]
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    def output_schema(self):
+        out = dict(self.source.output_schema())
+        out[self.marker] = BOOLEAN
+        return out
+
+
+@dataclass(frozen=True)
+class WindowFunction:
+    """One windowed function (plan/WindowNode.Function)."""
+    kind: str                 # row_number|rank|dense_rank|sum|avg|...
+    argument: Optional[str]
+    type: Type
+    frame_unit: str = "range"
+    frame_start: str = "unbounded_preceding"
+    frame_end: str = "current"
+    offset: Optional[str] = None     # lag/lead offset symbol
+    default: Optional[str] = None    # lag/lead default symbol
+    # constant offsets for '<n> PRECEDING/FOLLOWING' frame bounds
+    # (operator/window/FrameInfo.java)
+    frame_start_value: Optional[int] = None
+    frame_end_value: Optional[int] = None
+
+
+@dataclass(frozen=True)
+class WindowNode(PlanNode):
+    source: PlanNode
+    partition_by: Tuple[str, ...]
+    order_by: Tuple[SortKey, ...]
+    functions: Dict[str, WindowFunction]
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    def output_schema(self):
+        out = dict(self.source.output_schema())
+        for s, f in self.functions.items():
+            out[s] = f.type
+        return out
+
+
+@dataclass(frozen=True)
+class UnnestNode(PlanNode):
+    source: PlanNode
+    replicate: Tuple[str, ...]
+    unnest: Dict[str, str]          # output symbol -> array-typed input
+    ordinality: Optional[str] = None
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    def output_schema(self):
+        from ..types import ArrayType
+        src = self.source.output_schema()
+        out = {s: src[s] for s in self.replicate}
+        for o, i in self.unnest.items():
+            t = src[i]
+            out[o] = t.element if isinstance(t, ArrayType) else t
+        if self.ordinality:
+            out[self.ordinality] = BIGINT
+        return out
+
+
+@dataclass(frozen=True)
+class SampleNode(PlanNode):
+    source: PlanNode
+    method: str         # bernoulli | system
+    ratio: float
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    def output_schema(self):
+        return self.source.output_schema()
+
+
+@dataclass(frozen=True)
+class OutputNode(PlanNode):
+    """plan/OutputNode.java — final column names for the client."""
+    source: PlanNode
+    names: Tuple[str, ...]
+    symbols: Tuple[str, ...]
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    def output_schema(self):
+        src = self.source.output_schema()
+        return {s: src[s] for s in self.symbols}
+
+
+# --- distribution (M3) ----------------------------------------------------
+
+@dataclass(frozen=True)
+class ExchangeNode(PlanNode):
+    """plan/ExchangeNode.java:47-57 — Type GATHER/REPARTITION/REPLICATE ×
+    Scope LOCAL/REMOTE. Partitioning keys empty == round-robin/single."""
+    source: PlanNode
+    kind: str                       # gather | repartition | replicate
+    scope: str = "remote"
+    partition_keys: Tuple[str, ...] = ()
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    def output_schema(self):
+        return self.source.output_schema()
+
+
+@dataclass(frozen=True)
+class RemoteSourceNode(PlanNode):
+    """plan/RemoteSourceNode.java — reads a fragment's exchange output.
+
+    In the stage-DAG path (trino_tpu/stage/) ``fragment_ids`` name the
+    upstream STAGES whose partitioned output this node consumes: a task
+    executing this node pulls its own partition index from every task
+    of each named stage (exec/executor.py ``_exec_RemoteSourceNode``
+    through the stage exchange puller)."""
+    fragment_ids: Tuple[int, ...]
+    schema: Dict[str, Type]
+    kind: str = "repartition"
+
+    def output_schema(self):
+        return dict(self.schema)
+
+
+@dataclass(frozen=True)
+class PartitionedOutputNode(PlanNode):
+    """The producing half of a stage boundary (reference:
+    sql/planner/plan/ExchangeNode partitioning scheme +
+    operator/output/PartitionedOutputOperator.java). A stage whose plan
+    is rooted here hash-partitions its output rows across the consumer
+    stage's tasks by ``partition_keys`` (kind="hash"); kind="gather"
+    emits a single partition for a single consumer (the root stage or a
+    1-task FINAL aggregation); kind="replicate" emits a single
+    partition that EVERY consumer task reads whole (the REPLICATE
+    exchange: broadcast join build sides, semi-join filtering
+    sources). The partition COUNT is not part of the
+    plan — the stage scheduler fixes it at dispatch time (the consumer
+    stage's task count), exactly like the reference's bucket-count
+    decision living in scheduling, not in the fragment."""
+    source: PlanNode
+    partition_keys: Tuple[str, ...] = ()
+    kind: str = "hash"              # hash | gather | replicate
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    def output_schema(self):
+        return self.source.output_schema()
+
+
+# --- DML ------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class TableWriterNode(PlanNode):
+    """plan/TableWriterNode.java — writes source rows to a target table."""
+    source: PlanNode
+    target: TableHandle
+    column_names: Tuple[str, ...]
+    symbols: Tuple[str, ...]
+    rows_symbol: str = "rows"
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    def output_schema(self):
+        return {self.rows_symbol: BIGINT}
+
+
+@dataclass(frozen=True)
+class TableDeleteNode(PlanNode):
+    """plan/TableDeleteNode.java — whole-table / filtered delete."""
+    target: TableHandle
+    predicate: Optional[RowExpr]
+    rows_symbol: str = "rows"
+
+    def output_schema(self):
+        return {self.rows_symbol: BIGINT}
+
+
+@dataclass(frozen=True)
+class ExplainAnalyzeNode(PlanNode):
+    source: PlanNode
+    symbol: str
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    def output_schema(self):
+        from ..types import VARCHAR
+        return {self.symbol: VARCHAR}
+
+
+def plan_tree_lines(node: PlanNode, indent: int = 0) -> List[str]:
+    """Text rendering (reference: sql/planner/planprinter/PlanPrinter)."""
+    pad = "   " * indent
+    name = type(node).__name__.replace("Node", "")
+    detail = ""
+    if isinstance(node, TableScanNode):
+        extras = ""
+        if getattr(node.handle, "constraint", None) is not None:
+            extras += f" constraint=({node.handle.constraint})"
+        if getattr(node.handle, "limit", None) is not None:
+            extras += f" limit={node.handle.limit}"
+        detail = (f"[{node.handle.catalog}.{node.handle.schema}."
+                  f"{node.handle.table}{extras}]")
+    elif isinstance(node, FilterNode):
+        detail = f"[{node.predicate}]"
+    elif isinstance(node, ProjectNode):
+        detail = "[" + ", ".join(
+            f"{s} := {e}" for s, e in node.assignments.items()) + "]"
+    elif isinstance(node, AggregationNode):
+        aggs = ", ".join(f"{s} := {a.kind}({a.argument or '*'})"
+                         for s, a in node.aggregates.items())
+        detail = f"[{node.step} by({', '.join(node.group_keys)}) {aggs}]"
+    elif isinstance(node, JoinNode):
+        crit = " AND ".join(f"{c.left} = {c.right}" for c in node.criteria)
+        detail = f"[{node.join_type} {crit}]"
+    elif isinstance(node, (TopNNode,)):
+        detail = f"[{node.count} by {[k.symbol for k in node.keys]}]"
+    elif isinstance(node, LimitNode):
+        detail = f"[{node.count}]"
+    elif isinstance(node, ExchangeNode):
+        detail = f"[{node.kind}/{node.scope} by {list(node.partition_keys)}]"
+    elif isinstance(node, PartitionedOutputNode):
+        detail = f"[{node.kind} by {list(node.partition_keys)}]"
+    elif isinstance(node, RemoteSourceNode):
+        detail = f"[stages {list(node.fragment_ids)}]"
+    elif isinstance(node, OutputNode):
+        detail = f"[{', '.join(node.names)}]"
+    lines = [f"{pad}- {name}{detail}"]
+    for s in node.sources:
+        lines.extend(plan_tree_lines(s, indent + 1))
+    return lines

@@ -1,0 +1,388 @@
+"""Cardinality estimation + cost-based join decisions.
+
+Reference parity: cost/ (45 files — StatsCalculator, FilterStatsCalculator,
+JoinStatsRule, CostCalculatorUsingExchanges) + the cost-based rules
+DetermineJoinDistributionType / ReorderJoins (SURVEY.md §2.1 "Stats &
+cost"). Scope: scan row counts from connector statistics
+(spi/statistics/TableStatistics analog), heuristic filter factors, and
+two decisions: (a) probe/build side selection — the hash build side
+should be the smaller input; (b) PARTITIONED vs REPLICATED distribution
+for the distributed executor.
+"""
+
+from __future__ import annotations
+
+from dataclasses import replace as dc_replace
+from typing import Optional
+
+from .. import rex
+from ..catalog import CatalogManager
+from ..plan.nodes import (AggregationNode, EnforceSingleRowNode,
+                          FilterNode, JoinClause, JoinNode, LimitNode,
+                          OffsetNode, PlanNode, ProjectNode, SampleNode,
+                          SemiJoinNode, SetOpNode, SortNode,
+                          TableScanNode, TopNNode, UnionNode, ValuesNode)
+from ..rex import Call, CaseExpr, Cast, Const, InputRef
+
+# filter selectivity heuristics (FilterStatsCalculator's defaults)
+_EQ_FACTOR = 0.05
+_RANGE_FACTOR = 0.35
+_LIKE_FACTOR = 0.25
+_OTHER_FACTOR = 0.5
+# REPLICATED below this build-side estimate (DetermineJoinDistributionType)
+BROADCAST_ROWS = 1_000_000.0
+
+
+def estimate_rows(node: PlanNode, catalogs: CatalogManager,
+                  cache: Optional[dict] = None) -> float:
+    rows, _ = derive_stats(node, catalogs,
+                           cache if cache is not None else {})
+    return rows
+
+
+def derive_stats(node: PlanNode, catalogs: CatalogManager,
+                 cache: dict):
+    """(row estimate, {symbol: ColumnStatistics}) per plan node —
+    cost/StatsCalculator's PlanNodeStatsEstimate with per-symbol
+    SymbolStatsEstimate, memoized by node identity."""
+    key = id(node)
+    if key in cache:
+        return cache[key]
+    out = _derive(node, catalogs, cache)
+    cache[key] = out
+    return out
+
+
+def _derive(node, catalogs, cache):
+    if isinstance(node, TableScanNode):
+        conn = catalogs.connector(node.handle.catalog)
+        est = conn.table_row_count(node.handle)
+        rows = float(est) if est is not None else 10_000.0
+        cols = {}
+        for sym, col in node.assignments.items():
+            cs = conn.column_statistics(node.handle, col)
+            if cs is not None:
+                cols[sym] = cs
+        # a pushed-down constraint already filtered the scan
+        constraint = getattr(node.handle, "constraint", None)
+        if constraint is not None and not constraint.is_none:
+            for col, dom in constraint.domains:
+                for sym, c in node.assignments.items():
+                    if c == col and sym in cols:
+                        rows *= _domain_selectivity(dom, cols[sym])
+        return max(rows, 1.0), cols
+    if isinstance(node, FilterNode):
+        rows, cols = derive_stats(node.source, catalogs, cache)
+        sel, cols = _filter_stats(node.predicate, cols)
+        return max(rows * sel, 1.0), cols
+    if isinstance(node, ProjectNode):
+        rows, cols = derive_stats(node.source, catalogs, cache)
+        out = {}
+        for sym, e in node.assignments.items():
+            if isinstance(e, InputRef) and e.name in cols:
+                out[sym] = cols[e.name]
+        return rows, out
+    if isinstance(node, (SortNode, SampleNode)):
+        return derive_stats(node.sources[0], catalogs, cache)
+    if isinstance(node, (LimitNode, TopNNode)):
+        rows, cols = derive_stats(node.sources[0], catalogs, cache)
+        return min(float(node.count), rows), cols
+    if isinstance(node, OffsetNode):
+        rows, cols = derive_stats(node.source, catalogs, cache)
+        return max(rows - node.count, 0.0), cols
+    if isinstance(node, AggregationNode):
+        rows, cols = derive_stats(node.source, catalogs, cache)
+        if not node.group_keys:
+            return 1.0, {}
+        ndv = 1.0
+        known = True
+        for k in node.group_keys:
+            cs = cols.get(k)
+            if cs is None:
+                known = False
+                break
+            ndv *= max(cs.ndv, 1.0)
+        est = min(ndv, rows) if known else max(rows * 0.1, 1.0)
+        return max(est, 1.0), {k: v for k, v in cols.items()
+                               if k in node.group_keys}
+    if isinstance(node, JoinNode):
+        l, lcols = derive_stats(node.left, catalogs, cache)
+        r, rcols = derive_stats(node.right, catalogs, cache)
+        cols = {**lcols, **rcols}
+        if node.join_type == "cross" and not node.criteria:
+            return l * r, cols
+        if node.criteria:
+            # |L ⋈ R| = |L||R| / max(ndv(l_key), ndv(r_key)) per
+            # clause (cost/JoinStatsRule.java's formula)
+            est = l * r
+            for c in node.criteria:
+                la = lcols.get(c.left) or rcols.get(c.left)
+                ra = rcols.get(c.right) or lcols.get(c.right)
+                denom = max((la.ndv if la else 0.0),
+                            (ra.ndv if ra else 0.0), 1.0)
+                if la is None and ra is None:
+                    denom = max(min(l, r) * _EQ_FACTOR, 1.0)
+                est /= denom
+            if node.join_type in ("left", "full"):
+                est = max(est, l)
+            if node.join_type in ("right", "full"):
+                est = max(est, r)
+            return max(est, 1.0), cols
+        if node.join_type == "left":
+            return max(l, 1.0), cols
+        return max(l, r), cols
+    if isinstance(node, SemiJoinNode):
+        rows, cols = derive_stats(node.source, catalogs, cache)
+        return rows * 0.5, cols
+    if isinstance(node, EnforceSingleRowNode):
+        return 1.0, {}
+    if isinstance(node, ValuesNode):
+        return float(len(node.rows)), {}
+    if isinstance(node, UnionNode):
+        total = 0.0
+        for c in node.children:
+            rows, _ = derive_stats(c, catalogs, cache)
+            total += rows
+        return total, {}
+    if isinstance(node, SetOpNode):
+        return derive_stats(node.left, catalogs, cache)
+    if node.sources:
+        return derive_stats(node.sources[0], catalogs, cache)
+    return 1_000.0, {}
+
+
+def _domain_selectivity(dom, cs) -> float:
+    """Fraction of a column surviving a pushed TupleDomain domain."""
+    sv = dom.single_values()
+    if sv is not None:
+        return min(len(sv) / max(cs.ndv, 1.0), 1.0)
+    if (cs.min_value is None or cs.max_value is None
+            or not dom.ranges):
+        return _RANGE_FACTOR
+    width = max(cs.max_value - cs.min_value, 1e-9)
+    frac = 0.0
+    for r in dom.ranges:
+        lo = cs.min_value if r.low is None else max(float(r.low),
+                                                    cs.min_value)
+        hi = cs.max_value if r.high is None else min(float(r.high),
+                                                     cs.max_value)
+        frac += max(hi - lo, 0.0) / width
+    return min(max(frac, 1e-4), 1.0)
+
+
+def _filter_stats(e, cols):
+    """(selectivity, updated column stats) for a predicate
+    (cost/FilterStatsCalculator.java: 1/ndv equality, range-fraction
+    comparisons, heuristic fallbacks)."""
+    factor = 1.0
+    cols = dict(cols)
+    for c in rex.split_conjuncts(e):
+        factor *= _conjunct_selectivity(c, cols)
+    return max(factor, 1e-6), cols
+
+
+def _conjunct_selectivity(c, cols) -> float:
+    if isinstance(c, Call):
+        if c.fn == "=" and len(c.args) == 2:
+            ref, const = _ref_const(c.args)
+            if ref is not None and ref.name in cols:
+                cs = cols[ref.name]
+                cols[ref.name] = type(cs)(1.0, cs.min_value,
+                                          cs.max_value)
+                return 1.0 / max(cs.ndv, 1.0)
+            return _EQ_FACTOR
+        if c.fn in ("<", "<=", ">", ">=") and len(c.args) == 2:
+            ref, const = _ref_const(c.args)
+            if ref is not None and ref.name in cols \
+                    and const is not None:
+                cs = cols[ref.name]
+                if cs.min_value is not None and \
+                        cs.max_value is not None:
+                    try:
+                        v = float(const.value)
+                    except (TypeError, ValueError):
+                        return _RANGE_FACTOR
+                    width = max(cs.max_value - cs.min_value, 1e-9)
+                    op = c.fn if isinstance(c.args[0], InputRef) else \
+                        {"<": ">", "<=": ">=", ">": "<",
+                         ">=": "<="}[c.fn]
+                    if op in ("<", "<="):
+                        frac = (v - cs.min_value) / width
+                    else:
+                        frac = (cs.max_value - v) / width
+                    return min(max(frac, 1e-4), 1.0)
+            return _RANGE_FACTOR
+        if c.fn == "like":
+            return _LIKE_FACTOR
+        if c.fn == "or":
+            return min(_OTHER_FACTOR * 1.5, 1.0)
+        if c.fn == "is_null":
+            ref = c.args[0] if isinstance(c.args[0], InputRef) else None
+            if ref is not None and ref.name in cols:
+                return max(cols[ref.name].null_fraction, 1e-4)
+            return _EQ_FACTOR
+        if c.fn == "not" and isinstance(c.args[0], Call) \
+                and c.args[0].fn == "is_null":
+            return 1.0 - _EQ_FACTOR
+        return _OTHER_FACTOR
+    return _OTHER_FACTOR
+
+
+def _ref_const(args):
+    a, b = args
+    if isinstance(a, InputRef) and isinstance(b, Const):
+        return a, b
+    if isinstance(b, InputRef) and isinstance(a, Const):
+        return b, a
+    return None, None
+
+
+def reorder_joins(node: PlanNode, catalogs: CatalogManager) -> PlanNode:
+    """Connectivity-first greedy join ordering over flattened inner-join
+    trees (reference: iterative/rule/EliminateCrossJoins.java +
+    ReorderJoins.java, reduced to one greedy pass): start from the
+    largest relation (the fact-table spine), repeatedly join the
+    smallest relation that an equi-edge connects to the joined set.
+    Eliminates the syntactic-order cross-join blowups of comma-join
+    star queries (TPC-DS q64 joins 18 relations; date_dim/demographics
+    arrive before the relations that connect them)."""
+    if isinstance(node, JoinNode) and node.join_type in ("inner",
+                                                         "cross"):
+        rels: list = []
+        edges: list = []
+        residuals: list = []
+        _flatten_inner(node, rels, edges, residuals, catalogs)
+        if len(rels) > 2:
+            return _greedy_join_tree(rels, edges, residuals, catalogs)
+        # fall through to generic recursion for 2-way joins
+    if not node.sources:
+        return node
+    import dataclasses
+    if dataclasses.is_dataclass(node):
+        updates = {}
+        for f in dataclasses.fields(node):
+            v = getattr(node, f.name)
+            if isinstance(v, PlanNode):
+                updates[f.name] = reorder_joins(v, catalogs)
+            elif isinstance(v, tuple) and v and all(
+                    isinstance(x, PlanNode) for x in v):
+                updates[f.name] = tuple(reorder_joins(x, catalogs)
+                                        for x in v)
+        if updates:
+            return dc_replace(node, **updates)
+    return node
+
+
+def _flatten_inner(n: PlanNode, rels, edges, residuals, catalogs):
+    if isinstance(n, JoinNode) and n.join_type in ("inner", "cross"):
+        _flatten_inner(n.left, rels, edges, residuals, catalogs)
+        _flatten_inner(n.right, rels, edges, residuals, catalogs)
+        edges.extend(n.criteria)
+        if n.filter is not None:
+            residuals.extend(rex.split_conjuncts(n.filter))
+    else:
+        rels.append(reorder_joins(n, catalogs))
+
+
+def _greedy_join_tree(rels, edges, residuals, catalogs) -> PlanNode:
+    schemas = [set(r.output_schema()) for r in rels]
+    sizes = [estimate_rows(r, catalogs) for r in rels]
+    sym_rel = {s: i for i, sc in enumerate(schemas) for s in sc}
+    n = len(rels)
+
+    start = max(range(n), key=lambda i: sizes[i])
+    joined = {start}
+    tree: PlanNode = rels[start]
+    avail = set(schemas[start])
+    rem_edges = list(edges)
+    rem_res = list(residuals)
+
+    while len(joined) < n:
+        cand = set()
+        for e in rem_edges:
+            il, ir = sym_rel[e.left], sym_rel[e.right]
+            if (il in joined) != (ir in joined):
+                cand.add(ir if il in joined else il)
+        if not cand:
+            cand = set(range(n)) - joined  # genuine cross join
+        nxt = min(cand, key=lambda i: sizes[i])
+
+        crit, keep_edges = [], []
+        for e in rem_edges:
+            il, ir = sym_rel[e.left], sym_rel[e.right]
+            if {il, ir} <= joined | {nxt} and nxt in {il, ir}:
+                crit.append(JoinClause(e.left, e.right) if il in joined
+                            else JoinClause(e.right, e.left))
+            else:
+                keep_edges.append(e)
+        rem_edges = keep_edges
+
+        new_avail = avail | schemas[nxt]
+        place, keep_res = [], []
+        for c in rem_res:
+            (place if rex.input_names(c) <= new_avail
+             else keep_res).append(c)
+        rem_res = keep_res
+
+        tree = JoinNode(tree, rels[nxt],
+                        "inner" if crit else "cross", tuple(crit),
+                        rex.and_all(place) if place else None)
+        joined.add(nxt)
+        avail = new_avail
+
+    if rem_res:
+        tree = FilterNode(tree, rex.and_all(rem_res))
+    return tree
+
+
+def choose_join_sides(node: PlanNode,
+                      catalogs: CatalogManager,
+                      force_dist: str = "AUTOMATIC") -> PlanNode:
+    """Make the smaller input the hash-build (right) side and pick the
+    exchange distribution. Inner equi-joins only — outer joins keep
+    their probe side (the executor flips RIGHT joins itself).
+    ``force_dist`` is the join_distribution_type session property
+    (SystemSessionProperties.java:53): AUTOMATIC | BROADCAST |
+    PARTITIONED."""
+    if isinstance(node, JoinNode):
+        left = choose_join_sides(node.left, catalogs, force_dist)
+        right = choose_join_sides(node.right, catalogs, force_dist)
+        node = dc_replace(node, left=left, right=right)
+        if node.join_type == "inner" and node.criteria:
+            l_est = estimate_rows(node.left, catalogs)
+            r_est = estimate_rows(node.right, catalogs)
+            if l_est < r_est:
+                node = JoinNode(
+                    node.right, node.left, "inner",
+                    tuple(JoinClause(c.right, c.left)
+                          for c in node.criteria),
+                    node.filter, node.distribution)
+                l_est, r_est = r_est, l_est
+            f = (force_dist or "AUTOMATIC").upper()
+            if f == "PARTITIONED":
+                dist = "partitioned"
+            elif f == "BROADCAST":
+                dist = "replicated"
+            else:
+                dist = ("replicated" if r_est <= BROADCAST_ROWS
+                        else "partitioned")
+            node = dc_replace(node, distribution=dist)
+        return node
+    if not node.sources:
+        return node
+    import dataclasses
+    if dataclasses.is_dataclass(node):
+        updates = {}
+        for f in dataclasses.fields(node):
+            v = getattr(node, f.name)
+            if isinstance(v, PlanNode):
+                updates[f.name] = choose_join_sides(v, catalogs,
+                                                    force_dist)
+            elif isinstance(v, tuple) and v and all(
+                    isinstance(x, PlanNode) for x in v):
+                updates[f.name] = tuple(
+                    choose_join_sides(x, catalogs, force_dist)
+                    for x in v)
+        if updates:
+            return dc_replace(node, **updates)
+    return node

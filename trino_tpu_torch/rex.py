@@ -1,0 +1,211 @@
+"""Typed row-expression IR.
+
+Reference parity: core/trino-main/.../sql/relational/ (RowExpression,
+CallExpression, SpecialForm, ConstantExpression, InputReferenceExpression).
+Produced by the analyzer/planner from the AST; consumed by the executor,
+which traces it into jitted XLA computations (the reference's
+ExpressionCompiler bytecode step → jax.jit, SURVEY.md §7.2).
+
+Three-valued logic: every expression evaluates to a value lane + validity
+lane; AND/OR/NOT follow SQL Kleene semantics in the evaluator.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
+
+from .types import BOOLEAN, Type
+
+
+class RowExpr:
+    __slots__ = ()
+    type: Type
+
+
+@dataclass(frozen=True)
+class InputRef(RowExpr):
+    """Reference to a column of the input Batch by symbol name."""
+    name: str
+    type: Type
+
+    def __str__(self):
+        return self.name
+
+
+@dataclass(frozen=True)
+class Const(RowExpr):
+    """Literal; value is a host python scalar (None == typed NULL).
+    Strings stay python str; DATE is days-since-epoch int; intervals are
+    millis (day-time) / months (year-month)."""
+    value: object
+    type: Type
+
+    def __str__(self):
+        return repr(self.value)
+
+
+@dataclass(frozen=True)
+class Call(RowExpr):
+    """Scalar function or operator application. ``fn`` is the resolved
+    function name (lower case); operators use their symbol ('+', '=',
+    'and', 'not', 'is_null', 'like', ...). Argument coercions are
+    explicit Casts inserted by the analyzer."""
+    fn: str
+    args: Tuple[RowExpr, ...]
+    type: Type
+
+    def __str__(self):
+        return f"{self.fn}({', '.join(map(str, self.args))})"
+
+
+@dataclass(frozen=True)
+class Cast(RowExpr):
+    arg: RowExpr
+    type: Type
+    safe: bool = False      # TRY_CAST yields NULL instead of failing
+
+    def __str__(self):
+        return f"cast({self.arg} as {self.type})"
+
+
+@dataclass(frozen=True)
+class CaseExpr(RowExpr):
+    """Searched CASE (SpecialForm.WHEN/SWITCH in the reference)."""
+    whens: Tuple[Tuple[RowExpr, RowExpr], ...]
+    default: Optional[RowExpr]
+    type: Type
+
+    def __str__(self):
+        parts = " ".join(f"when {c} then {v}" for c, v in self.whens)
+        return f"case {parts} else {self.default} end"
+
+
+@dataclass(frozen=True)
+class Lambda(RowExpr):
+    """Lambda argument of a higher-order function (reference:
+    sql/relational/LambdaDefinitionExpression). ``params`` are fresh
+    symbol names the body refers to via InputRef; the evaluator binds
+    them to flat element lanes (exec/expr.py lambda machinery)."""
+    params: Tuple[str, ...]
+    body: RowExpr
+    type: Type  # the body's result type
+
+    def __str__(self):
+        return f"({', '.join(self.params)}) -> {self.body}"
+
+
+TRUE = Const(True, BOOLEAN)
+FALSE = Const(False, BOOLEAN)
+
+
+def and_all(exprs) -> RowExpr:
+    exprs = [e for e in exprs if e is not None and e != TRUE]
+    if not exprs:
+        return TRUE
+    out = exprs[0]
+    for e in exprs[1:]:
+        out = Call("and", (out, e), BOOLEAN)
+    return out
+
+
+def or_all(exprs) -> RowExpr:
+    exprs = list(exprs)
+    if not exprs:
+        return FALSE
+    out = exprs[0]
+    for e in exprs[1:]:
+        out = Call("or", (out, e), BOOLEAN)
+    return out
+
+
+def walk(e: RowExpr):
+    """Pre-order traversal."""
+    yield e
+    if isinstance(e, Call):
+        for a in e.args:
+            yield from walk(a)
+    elif isinstance(e, Lambda):
+        yield from walk(e.body)
+    elif isinstance(e, Cast):
+        yield from walk(e.arg)
+    elif isinstance(e, CaseExpr):
+        for c, v in e.whens:
+            yield from walk(c)
+            yield from walk(v)
+        if e.default is not None:
+            yield from walk(e.default)
+
+
+def input_names(e: RowExpr):
+    """Free InputRef names (lambda parameters are bound, not inputs)."""
+    out = set()
+
+    def go(x, bound):
+        if isinstance(x, InputRef):
+            if x.name not in bound:
+                out.add(x.name)
+        elif isinstance(x, Call):
+            for a in x.args:
+                go(a, bound)
+        elif isinstance(x, Lambda):
+            go(x.body, bound | set(x.params))
+        elif isinstance(x, Cast):
+            go(x.arg, bound)
+        elif isinstance(x, CaseExpr):
+            for c, v in x.whens:
+                go(c, bound)
+                go(v, bound)
+            if x.default is not None:
+                go(x.default, bound)
+
+    go(e, frozenset())
+    return out
+
+
+def replace_inputs(e: RowExpr, mapping) -> RowExpr:
+    """Rewrite InputRefs through mapping (name -> RowExpr or name)."""
+    if isinstance(e, InputRef):
+        m = mapping.get(e.name)
+        if m is None:
+            return e
+        return InputRef(m, e.type) if isinstance(m, str) else m
+    if isinstance(e, Call):
+        return Call(e.fn, tuple(replace_inputs(a, mapping) for a in e.args),
+                    e.type)
+    if isinstance(e, Lambda):
+        inner = {k: v for k, v in mapping.items() if k not in e.params}
+        return Lambda(e.params, replace_inputs(e.body, inner), e.type)
+    if isinstance(e, Cast):
+        return Cast(replace_inputs(e.arg, mapping), e.type, e.safe)
+    if isinstance(e, CaseExpr):
+        return CaseExpr(
+            tuple((replace_inputs(c, mapping), replace_inputs(v, mapping))
+                  for c, v in e.whens),
+            None if e.default is None
+            else replace_inputs(e.default, mapping), e.type)
+    return e
+
+
+def split_conjuncts(e: Optional[RowExpr]):
+    """Flatten an AND tree into a conjunct list
+    (reference: sql/ExpressionUtils.extractConjuncts)."""
+    if e is None or e == TRUE:
+        return []
+    if isinstance(e, Call) and e.fn == "and":
+        return split_conjuncts(e.args[0]) + split_conjuncts(e.args[1])
+    return [e]
+
+
+# functions whose value must be re-evaluated per query/row — plans may
+# not cache programs containing them, and optimizer rewrites may not
+# duplicate or move them across row-set boundaries
+VOLATILE_FNS = frozenset({"now", "current_date", "current_time",
+                          "current_timestamp", "localtime",
+                          "localtimestamp", "random", "rand", "uuid"})
+
+
+def expr_volatile(e: RowExpr) -> bool:
+    """True when the expression tree contains a volatile call."""
+    return any(isinstance(x, Call) and x.fn in VOLATILE_FNS
+               for x in walk(e))
