@@ -2,13 +2,16 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel from trino_tpu_torch/csrc, drives TPC-H q1 at
-tpch.sf10 through ``trino_tpu_torch.runner.LocalQueryRunner().execute``,
-holds each kernel against its plain PyTorch version, and checks q1's rows
-against an independent numpy reference. Each phase prints one JSON line;
-the line before the last lists the kernels, the last line is the result.
-Any failed phase exits non-zero without printing a result, as does a
-machine without CUDA.
+Builds every CUDA kernel from trino_tpu_torch/csrc, drives TPC-H q1, q3
+and q6 at tpch.sf10 through
+``trino_tpu_torch.runner.LocalQueryRunner().execute``, holds each kernel
+against its plain PyTorch version, and checks each query's rows against an
+independent numpy reference over the lanes the card generates (themselves
+held bit-identical to the numpy generators). q3 runs four times; its rows
+must be bit-identical every time. Each phase prints one JSON line; the
+line before the last lists the kernels, the last line is the result. Any
+failed phase exits non-zero without printing a result, as does a machine
+without CUDA.
 """
 
 from __future__ import annotations
@@ -29,6 +32,10 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM (NVIDIA data sheet)
 FP64_OPS_PER_S = 67e12      # H100 SXM FP64 tensor-core peak (data sheet)
 Q1_COLS = ["l_quantity", "l_extendedprice", "l_discount", "l_tax",
            "l_returnflag", "l_linestatus", "l_shipdate"]
+Q3_L_COLS = ["l_orderkey", "l_extendedprice", "l_discount", "l_shipdate"]
+Q3_O_COLS = ["o_orderkey", "o_custkey", "o_orderdate", "o_shippriority"]
+Q6_COLS = ["l_quantity", "l_extendedprice", "l_discount", "l_shipdate"]
+WARM_REPS = 3
 
 
 class PhaseFailed(Exception):
@@ -36,7 +43,7 @@ class PhaseFailed(Exception):
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields}, default=str), flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -147,6 +154,154 @@ def phase_q1(runner_mod, session_mod, cuda_groupby, q1):
     check(launches >= 1, "q1 did not launch grouped_sums")
     check(warm_result.rows == result.rows, "q1 rows differ between runs")
     return result.rows, launches, cold, warm, peak
+
+
+def days(y: int, m: int, d: int) -> int:
+    return (datetime.date(y, m, d) - datetime.date(1970, 1, 1)).days
+
+
+def run_timed(runner, sql: str, cuda_groupby):
+    """(cold result, warm results, cold s, median warm s, peak bytes,
+    grouped_sums launches in the cold run)"""
+    torch.cuda.reset_peak_memory_stats()
+    cuda_groupby.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cold = runner.execute(sql)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    launches = cuda_groupby.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    warm, walls = [], []
+    for _ in range(WARM_REPS):
+        t0 = time.perf_counter()
+        warm.append(runner.execute(sql))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return cold, warm, cold_s, sorted(walls)[len(walls) // 2], peak, launches
+
+
+def host_lanes(batch, cols):
+    n = batch.num_rows_host()
+    return {c: batch.column(c).data[:n].cpu().numpy() for c in cols}, n
+
+
+def phase_orders_gen(tpch_mod, device_mod):
+    """orders_batch on the card against the numpy orders generator on
+    three sf10 ranges: every column, o_totalprice bit-identical."""
+    sf = tpch_mod.SCHEMAS[SCHEMA]
+    orders = tpch_mod.table_rows("orders", sf)
+    cols = sorted(device_mod.ORDERS_DEVICE_COLS)
+    host = tpch_mod.TpchConnector(device="cpu")
+    ranges = [(0, 100_000), (orders // 2, orders // 2 + 100_000),
+              (orders - 100_000, orders)]
+    for lo, hi in ranges:
+        dev = device_mod.orders_batch(lo, hi, sf, cols, DEVICE)
+        ref = host._orders(np.arange(lo + 1, hi + 1, dtype=np.int64), sf,
+                           cols)
+        n = ref.num_rows_host()
+        check(dev.num_rows_host() == n, f"orders row count {lo}-{hi}")
+        for name in cols:
+            a = dev.column(name).data[:n].cpu().numpy()
+            b = ref.column(name).data[:n].numpy()
+            if ref.column(name).dictionary is not None:
+                a = dev.column(name).dictionary.values[a]
+                b = ref.column(name).dictionary.values[b]
+            check(a.dtype == b.dtype and np.array_equal(a, b),
+                  f"orders lane {name} {lo}-{hi}")
+    emit("orders_gen", schema=f"tpch.{SCHEMA}", ranges=ranges,
+         columns=cols, bit_identical_to_numpy=True)
+
+
+def q3_reference(tpch_mod, device_mod):
+    """q3 with numpy alone over lanes the card generated: filters, the
+    orders join by searchsorted on the unique o_orderkey, the customer
+    join, revenue per order by bincount, the top 10. Returns (rows, join
+    sizes, lineitem rows)."""
+    sf = tpch_mod.SCHEMAS[SCHEMA]
+    n_orders = tpch_mod.table_rows("orders", sf)
+    n_cust = tpch_mod.table_rows("customer", sf)
+    li, n_li = host_lanes(device_mod.lineitem_batch(
+        0, n_orders, sf, Q3_L_COLS, DEVICE), Q3_L_COLS)
+    od, _ = host_lanes(device_mod.orders_batch(
+        0, n_orders, sf, Q3_O_COLS, DEVICE), Q3_O_COLS)
+    torch.cuda.empty_cache()
+    cust = tpch_mod.TpchConnector(device="cpu")._customer(
+        np.arange(1, n_cust + 1, dtype=np.int64), sf,
+        ["c_custkey", "c_mktsegment"])
+    c_key = cust.column("c_custkey").data[:n_cust].numpy()
+    seg = cust.column("c_mktsegment")
+    c_ok = (seg.dictionary.values[seg.data[:n_cust].numpy()]
+            == "BUILDING")
+    cutoff = days(1995, 3, 15)
+    o_key = od["o_orderkey"]
+    check(bool(np.all(np.diff(o_key) > 0)), "o_orderkey not unique")
+    o_ok = od["o_orderdate"] < cutoff
+    l_ok = li["l_shipdate"] > cutoff
+    lk = li["l_orderkey"][l_ok]
+    opos = np.clip(np.searchsorted(o_key, lk), 0, n_orders - 1)
+    hit = (o_key[opos] == lk) & o_ok[opos]
+    opos = opos[hit]
+    cpos = np.clip(np.searchsorted(c_key, od["o_custkey"][opos]), 0,
+                   n_cust - 1)
+    keep = (c_key[cpos] == od["o_custkey"][opos]) & c_ok[cpos]
+    rev = (li["l_extendedprice"][l_ok][hit]
+           * (1 - li["l_discount"][l_ok][hit]))[keep]
+    grp = opos[keep]
+    sums = np.bincount(grp, weights=rev, minlength=n_orders)
+    cnt = np.bincount(grp, minlength=n_orders)
+    g = np.nonzero(cnt)[0]
+    top = g[np.lexsort((od["o_orderdate"][g], -sums[g]))[:10]]
+    epoch = datetime.date(1970, 1, 1)
+    rows = [[int(o_key[i]), float(sums[i]),
+             epoch + datetime.timedelta(days=int(od["o_orderdate"][i])),
+             int(od["o_shippriority"][i])] for i in top]
+    sizes = [(int(l_ok.sum()), int(o_ok.sum()), int(hit.sum())),
+             (int(hit.sum()), int(c_ok.sum()), int(keep.sum()))]
+    return rows, sizes, n_li
+
+
+def phase_q3(runner, cuda_groupby, tpch_mod, device_mod, q3):
+    cold, warm, cold_s, warm_s, peak, launches = run_timed(
+        runner, q3, cuda_groupby)
+    want, sizes, n_li = q3_reference(tpch_mod, device_mod)
+    got = cold.rows
+    ok = rows_match(got, want)
+    same = all(w.rows == got for w in warm)
+    emit("q3", schema=f"tpch.{SCHEMA}", rows=len(got), lineitem_rows=n_li,
+         cold_s=cold_s, warm_s=warm_s, warm_rows_per_s=n_li / warm_s,
+         max_memory_allocated=peak, grouped_sums_launches=launches,
+         join_sizes=cold.join_sizes, reference_join_sizes=sizes,
+         matches_numpy_reference=ok, bit_identical_runs=1 + len(warm),
+         bit_identical=same, first_row=got[0] if got else None)
+    check(len(got) == 10 and ok, "q3 rows differ from the numpy reference")
+    check([tuple(x) for x in cold.join_sizes] == sizes,
+          "q3 join sizes differ from the numpy reference")
+    check(same, "q3 rows differ between runs")
+
+
+def phase_q6(runner, cuda_groupby, tpch_mod, device_mod, q6):
+    cold, warm, cold_s, warm_s, peak, launches = run_timed(
+        runner, q6, cuda_groupby)
+    sf = tpch_mod.SCHEMAS[SCHEMA]
+    li, n_li = host_lanes(device_mod.lineitem_batch(
+        0, tpch_mod.table_rows("orders", sf), sf, Q6_COLS, DEVICE),
+        Q6_COLS)
+    torch.cuda.empty_cache()
+    disc = li["l_discount"]
+    keep = ((li["l_shipdate"] >= days(1994, 1, 1))
+            & (li["l_shipdate"] < days(1995, 1, 1))
+            & (disc >= 0.05) & (disc <= 0.07) & (li["l_quantity"] < 24))
+    want = [[float(np.sum(li["l_extendedprice"][keep] * disc[keep]))]]
+    ok = rows_match(cold.rows, want)
+    same = all(w.rows == cold.rows for w in warm)
+    emit("q6", schema=f"tpch.{SCHEMA}", lineitem_rows=n_li,
+         rows_kept=int(keep.sum()), cold_s=cold_s, warm_s=warm_s,
+         warm_rows_per_s=n_li / warm_s, max_memory_allocated=peak,
+         grouped_sums_launches=launches, matches_numpy_reference=ok,
+         bit_identical=same, result=cold.rows, reference=want)
+    check(ok, "q6 differs from the numpy reference")
+    check(same, "q6 differs between runs")
 
 
 def phase_q1_check(rows, tpch_mod, device_mod, cold, warm, launches, peak):
@@ -320,6 +475,15 @@ def main() -> int:
             runner_mod, session_mod, cuda_groupby, TPCH_QUERIES[1])
         phase_q1_check(rows, tpch_mod, device_mod, cold, warm, launches,
                        peak)
+        phase_orders_gen(tpch_mod, device_mod)
+        runner = runner_mod.LocalQueryRunner(
+            session_mod.Session(catalog="tpch", schema=SCHEMA))
+        phase_q3(runner, cuda_groupby, tpch_mod, device_mod,
+                 TPCH_QUERIES[3])
+        phase_q6(runner, cuda_groupby, tpch_mod, device_mod,
+                 TPCH_QUERIES[6])
+        del runner
+        torch.cuda.empty_cache()
         kernel = phase_kernel(cuda_groupby)
     except PhaseFailed as e:
         print(f"chip_smoke: phase failed: {e}", file=sys.stderr)

@@ -17,7 +17,8 @@ from trino_tpu.connectors.tpch import SCHEMAS, TpchConnector as TpuTpch
 from trino_tpu_torch.catalog import Split, TableHandle
 from trino_tpu_torch.connectors.tpch import TpchConnector
 from trino_tpu_torch.connectors.tpch_device import (
-    LINEITEM_DEVICE_COLS, _umod, _u64, device_filter, lineitem_batch)
+    LINEITEM_DEVICE_COLS, _u64, device_filter, lineitem_batch)
+from trino_tpu_torch.ops.hashing import umod
 from trino_tpu_torch.predicate import filter_batch_host
 
 COLS = sorted(LINEITEM_DEVICE_COLS)
@@ -61,7 +62,7 @@ def test_u64_emulation_matches_numpy():
     got = _u64(6005, torch.from_numpy(idx))
     assert np.array_equal(got.numpy().view(np.uint64), want)
     for m in (2, 7, 121, 200_000, 2**61 + 1):
-        assert np.array_equal(_umod(got, m).numpy(),
+        assert np.array_equal(umod(got, m).numpy(),
                               (want % np.uint64(m)).astype(np.int64))
 
 

@@ -202,12 +202,25 @@ class Column:
         return replace(self, data=mv(self.data), valid=mv(self.valid),
                        data2=mv(self.data2))
 
-    def gather(self, indices: torch.Tensor) -> "Column":
-        """Row gather with clamped indices."""
+    def gather(self, indices: torch.Tensor,
+               fill_invalid: Optional[torch.Tensor] = None) -> "Column":
+        """Row gather with clamped indices; gathered rows where
+        ``fill_invalid`` is True become NULL (outer-join padding)."""
         def g(t):
             return None if t is None else take_clamped(t, indices)
-        return replace(self, data=g(self.data), valid=g(self.valid),
+        valid = g(self.valid)
+        if fill_invalid is not None:
+            valid = ~fill_invalid if valid is None else valid & ~fill_invalid
+        return replace(self, data=g(self.data), valid=valid,
                        data2=g(self.data2))
+
+    def with_dictionary(self, dictionary: "StringDictionary",
+                        remap: np.ndarray) -> "Column":
+        """Rewrite codes through ``remap`` into a merged dictionary."""
+        table = torch.from_numpy(np.asarray(remap, np.int32))
+        return replace(self, data=take_clamped(table.to(self.device),
+                                               self.data),
+                       dictionary=dictionary)
 
     def valid_mask(self) -> torch.Tensor:
         if self.valid is None:

@@ -43,6 +43,9 @@ class EngineConfig:
     min_capacity: int = 1 << 10
     # per-query device memory limit in bytes
     max_query_memory_per_node: int = 16 << 30
+    # largest join output materialised as one batch; beyond it the JAX
+    # engine spills to host memory (not ported: such a join raises)
+    max_batch_rows: int = 1 << 22
     spill_enabled: bool = True
     prewarm_enabled: bool = True
     prewarm_top_k: int = 8

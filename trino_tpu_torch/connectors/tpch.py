@@ -341,8 +341,8 @@ class TpchConnector(Connector):
     def __init__(self, rows_per_split: int = 1 << 17,
                  device: DeviceLike = None):
         self.rows_per_split = rows_per_split
-        # splits are returned on this device; on a card, lineitem is
-        # generated there (tpch_device.py)
+        # splits are returned on this device; on a card, lineitem and
+        # orders are generated there (tpch_device.py)
         self.device = resolve_device(device)
 
     # --- metadata --------------------------------------------------------
@@ -492,17 +492,16 @@ class TpchConnector(Connector):
         if self.device.type != "cuda":
             return None
         from .tpch_device import (device_columns, device_filter,
-                                  lineitem_batch)
+                                  lineitem_batch, orders_batch)
         allowed = device_columns(table)
         if allowed is None or not set(gen_cols) <= allowed:
             return None
-        if table == "lineitem":
-            units = table_rows("orders", sf)
-        else:
-            units = table_rows(table, sf)
+        # both tables are addressed by order index
+        units = table_rows("orders", sf)
         lo = split.part * units // split.part_count
         hi = (split.part + 1) * units // split.part_count
-        out = lineitem_batch(lo, hi, sf, list(gen_cols), self.device)
+        gen = lineitem_batch if table == "lineitem" else orders_batch
+        out = gen(lo, hi, sf, list(gen_cols), self.device)
         if handle.constraint is not None or handle.limit is not None:
             out = device_filter(out, handle.constraint, handle.limit)
             out = out.select_columns(list(columns))

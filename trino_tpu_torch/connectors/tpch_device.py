@@ -1,16 +1,10 @@
-"""Device-side TPC-H generation: lineitem lanes born in device memory.
+"""Device-side TPC-H generation: lineitem and orders lanes born in
+device memory.
 
-Counterpart of ``trino_tpu/connectors/tpch_device.py`` (lineitem only so
-far). Every value is ``mix(seed, row_index)`` through the counter-based
-splitmix64 of the host generator (connectors/tpch.py), so the lanes are
-bit-identical to the numpy leg.
-
-Torch has no unsigned 64-bit arithmetic (``>>``, ``%`` and ``+`` are not
-implemented for ``torch.uint64``), so a u64 value is carried as the same
-64-bit pattern in an int64 tensor: multiply, xor and add wrap alike in
-two's complement; a logical right shift is the arithmetic shift with the
-copied sign bits masked off; an unsigned remainder is built from the
-non-negative ``x >>> 1``.
+Counterpart of ``trino_tpu/connectors/tpch_device.py``. Every value is
+``mix(seed, row_index)`` through the counter-based splitmix64 of the host
+generator (connectors/tpch.py), so the lanes are bit-identical to the
+numpy leg. u64 arithmetic runs on int64 carriers (ops/hashing.py).
 """
 
 from __future__ import annotations
@@ -22,51 +16,21 @@ import torch
 
 from ..columnar import Batch, Column, take_clamped
 from ..config import capacity_for
+from ..ops.hashing import GOLDEN, mix64, s64, umod
 from ..types import BIGINT, DATE, DOUBLE, INTEGER, VarcharType
 from .tpch import (CURRENTDATE, INSTRUCTIONS, MODES, ORDER_DATE_SPAN,
-                   STARTDATE, _SEED, table_rows, _strings as _dict_col)
+                   PRIORITIES, STARTDATE, _SEED, table_rows,
+                   _strings as _dict_col)
 
 _I64 = torch.int64
-_M64 = (1 << 64) - 1
-
-
-def _s64(u: int) -> int:
-    """The int64 with the bit pattern of the unsigned ``u mod 2^64``."""
-    u &= _M64
-    return u - (1 << 64) if u >= (1 << 63) else u
-
-
-_C1 = _s64(0xBF58476D1CE4E5B9)
-_C2 = _s64(0x94D049BB133111EB)
-_GOLD = 0x9E3779B97F4A7C15
-
-
-def _shr(x: torch.Tensor, s: int) -> torch.Tensor:
-    """Logical right shift of a u64 pattern held in int64."""
-    return (x >> s) & ((1 << (64 - s)) - 1)
-
-
-def _umod(x: torch.Tensor, m: int) -> torch.Tensor:
-    """Unsigned remainder of a u64 pattern by 0 < m < 2^62: with
-    x = 2h + b (h = x >>> 1 >= 0), x mod m = (2 (h mod m) + b) mod m."""
-    return (2 * (_shr(x, 1) % m) + (x & 1)) % m
-
-
-def _mix(x: torch.Tensor) -> torch.Tensor:
-    x = x ^ _shr(x, 30)
-    x = x * _C1
-    x = x ^ _shr(x, 27)
-    x = x * _C2
-    x = x ^ _shr(x, 31)
-    return x
 
 
 def _u64(seed: int, idx: torch.Tensor) -> torch.Tensor:
-    return _mix(idx.to(_I64) + _s64(seed * _GOLD))
+    return mix64(idx.to(_I64) + s64(seed * GOLDEN))
 
 
 def _randint(seed: int, idx: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
-    return lo + _umod(_u64(seed, idx), hi - lo + 1)
+    return lo + umod(_u64(seed, idx), hi - lo + 1)
 
 
 def _order_key(i: torch.Tensor) -> torch.Tensor:
@@ -76,6 +40,14 @@ def _order_key(i: torch.Tensor) -> torch.Tensor:
 def _order_date(order_idx: torch.Tensor) -> torch.Tensor:
     return STARTDATE + _randint(_SEED["orders"] + 4, order_idx, 0,
                                 ORDER_DATE_SPAN)
+
+
+def _cust_key(order_idx: torch.Tensor, c_count: int) -> torch.Tensor:
+    """Random custkey never divisible by 3 (only 2/3 of customers have
+    orders, spec 4.2.3)."""
+    j = _randint(_SEED["orders"] + 3, order_idx, 1,
+                 max(2 * c_count // 3, 1))
+    return 3 * ((j - 1) // 2) + 1 + ((j - 1) % 2)
 
 
 def _line_counts(order_idx: torch.Tensor) -> torch.Tensor:
@@ -108,8 +80,14 @@ LINEITEM_DEVICE_COLS = {
     "l_linestatus", "l_shipinstruct", "l_shipmode"}
 
 
+ORDERS_DEVICE_COLS = {
+    "o_orderkey", "o_custkey", "o_orderstatus", "o_totalprice",
+    "o_orderdate", "o_orderpriority", "o_shippriority"}
+
+
 def device_columns(table: str) -> Optional[set]:
-    return LINEITEM_DEVICE_COLS if table == "lineitem" else None
+    return {"lineitem": LINEITEM_DEVICE_COLS,
+            "orders": ORDERS_DEVICE_COLS}.get(table)
 
 
 def _line_grid(lo: int, hi: int, device: torch.device):
@@ -191,7 +169,7 @@ def lineitem_batch(lo: int, hi: int, sf: float, columns: List[str],
             out["l_receiptdate"] = Column(DATE, receipt.to(torch.int32))
         if "l_returnflag" in need:
             returned = receipt <= CURRENTDATE
-            ra = _umod(_u64(S + 20, rid), 2)
+            ra = umod(_u64(S + 20, rid), 2)
             flag = torch.where(returned, ra, 2).to(torch.int32)
             out["l_returnflag"] = _dict_col(["R", "A", "N"], flag,
                                             VarcharType(1))
@@ -206,6 +184,72 @@ def lineitem_batch(lo: int, hi: int, sf: float, columns: List[str],
         sm = _randint(S + 22, rid, 0, 6).to(torch.int32)
         out["l_shipmode"] = _dict_col(MODES, sm, VarcharType(10))
     return Batch({c: out[c] for c in columns}, total)
+
+
+def orders_batch(lo: int, hi: int, sf: float, columns: List[str],
+                 device: torch.device) -> Batch:
+    """Orders rows for order indices (lo, hi], generated on ``device``.
+    o_totalprice and o_orderstatus aggregate the order's generated
+    lineitems on a static 7-wide grid (dead cells masked)."""
+    S = _SEED["orders"]
+    idx = torch.arange(lo + 1, hi + 1, dtype=_I64, device=device)
+    n = hi - lo
+    cap = capacity_for(max(n, 1), minimum=8)
+
+    def padded(a: torch.Tensor) -> torch.Tensor:
+        return torch.cat([a, torch.zeros(cap - n, dtype=a.dtype,
+                                         device=device)])
+
+    need = set(columns)
+    out: Dict[str, Column] = {}
+    if "o_orderkey" in need:
+        out["o_orderkey"] = Column(BIGINT, padded(_order_key(idx)))
+    if "o_custkey" in need:
+        out["o_custkey"] = Column(BIGINT, padded(
+            _cust_key(idx, table_rows("customer", sf))))
+    if need & {"o_orderstatus", "o_totalprice"}:
+        SL = _SEED["lineitem"]
+        counts = _line_counts(idx)
+        o_grid = torch.repeat_interleave(idx, 7)
+        ln_grid = torch.arange(1, 8, dtype=_I64, device=device).repeat(n)
+        live = ln_grid <= torch.repeat_interleave(counts, 7)
+        rid = o_grid * 8 + ln_grid
+        pk = _randint(SL + 2, rid, 1, table_rows("part", sf))
+        qty = _randint(SL + 4, rid, 1, 50).to(torch.float64)
+        disc = _per_100(_randint(SL + 5, rid, 0, 10))
+        tax = _per_100(_randint(SL + 6, rid, 0, 8))
+        price = qty * _retailprice(pk) * (1.0 + tax) * (1.0 - disc)
+        price = torch.where(live, price, 0.0).reshape(n, 7)
+        # sequential left-to-right adds: bit-identical to the host
+        # leg's np.add.at accumulation (a tree reduction rounds
+        # differently in the last bit)
+        total = price[:, 0]
+        for k in range(1, 7):
+            total = total + price[:, k]
+        # numpy's round(x, 2): rint(x * 100) / 100 with a true division
+        total = _per_100(torch.round(total * 100.0))
+        if "o_totalprice" in need:
+            out["o_totalprice"] = Column(DOUBLE, padded(total))
+        if "o_orderstatus" in need:
+            ship = _order_date(o_grid) + _randint(SL + 7, rid, 1, 121)
+            shipped = (live & (ship <= CURRENTDATE)).reshape(n, 7)
+            n_shipped = shipped.sum(dim=1)
+            status = torch.where(
+                n_shipped == 0, 0,
+                torch.where(n_shipped == counts, 1, 2)).to(torch.int32)
+            out["o_orderstatus"] = _dict_col(["O", "F", "P"],
+                                             padded(status), VarcharType(1))
+    if "o_orderdate" in need:
+        out["o_orderdate"] = Column(DATE, padded(
+            _order_date(idx).to(torch.int32)))
+    if "o_orderpriority" in need:
+        p = _randint(S + 5, idx, 0, 4).to(torch.int32)
+        out["o_orderpriority"] = _dict_col(PRIORITIES, padded(p),
+                                           VarcharType(15))
+    if "o_shippriority" in need:
+        out["o_shippriority"] = Column(
+            INTEGER, torch.zeros(cap, dtype=torch.int32, device=device))
+    return Batch({c: out[c] for c in columns}, n)
 
 
 def device_filter(batch: Batch, constraint, limit: Optional[int]) -> Batch:

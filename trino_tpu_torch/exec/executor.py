@@ -5,7 +5,10 @@ the plan bottom-up and evaluates each node as whole-column tensor
 operations over capacity-padded Batches on one device. There are no jit
 caches. An aggregation over a Filter/Project chain evaluates the filter
 into a live mask that the aggregation consumes directly, with no
-compaction (``_try_masked_filter_aggregation``).
+compaction (``_try_masked_filter_aggregation``). Joins and semi-joins
+are the sort + binary-search joins of ops/join.py, materialised whole
+(the JAX engine's eager ``join_ops`` path); a join whose output exceeds
+``max_batch_rows`` would spill to host memory there, and raises here.
 
 Plan nodes, expressions and aggregates outside the ported slice raise
 ``QueryError("not yet ported: ...")``; nothing runs through another
@@ -15,7 +18,8 @@ engine.
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional, Sequence
+from dataclasses import replace as dc_replace
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -23,15 +27,24 @@ import torch
 from ..catalog import CatalogManager
 from ..columnar import (Batch, Column, StringDictionary, batch_from_pylist,
                         take_clamped)
-from ..config import (MemoryLimitExceeded, capacity_for, reserve_bytes)
-from ..ops import compact, sort as sort_ops
+from ..config import (CONFIG, MemoryLimitExceeded, capacity_for,
+                      reserve_bytes)
+from ..ops import compact, join as join_ops, sort as sort_ops
 from ..ops.groupby import AggInput, global_aggregate, group_aggregate
-from ..plan.nodes import (Aggregate, AggregationNode, FilterNode, LimitNode,
-                          OutputNode, PlanNode, ProjectNode, SortNode,
-                          TableScanNode, TopNNode, ValuesNode)
+from ..plan.nodes import (Aggregate, AggregationNode, EnforceSingleRowNode,
+                          FilterNode, JoinClause, JoinNode, LimitNode,
+                          OutputNode, PlanNode, ProjectNode, SemiJoinNode,
+                          SortNode, TableScanNode, TopNNode, ValuesNode)
+from ..planner.logical import SemiJoinMultiNode
+from ..rex import Call, InputRef, and_all
 from ..session import Session
-from ..types import BIGINT, DecimalType, REAL, is_string
+from ..types import BIGINT, BOOLEAN, DecimalType, REAL, is_string
 from .expr import EvalError, eval_expr, eval_predicate
+from .streamjoin import maybe_stream_join
+
+# position lanes that carry probe / build row numbers through a residual
+# filter, so outer rows whose matches all failed can be null-extended
+_PPOS, _BPOS = "__probe_pos$", "__build_pos$"
 
 
 class QueryError(Exception):
@@ -43,12 +56,39 @@ class QueryError(Exception):
             self.error_name = error_name
 
 
+def _keys_inexact(cols: Dict[str, Column], keys: Sequence[str]) -> bool:
+    """True when the u64 equality lane of ops/join.py is not bijective
+    for these keys: several columns (hash-combined), a float (hashed) or
+    an Int128 decimal (only the low lane is hashed)."""
+    if len(keys) > 1:
+        return True
+    c = cols[keys[0]]
+    return c.data2 is not None or c.data.is_floating_point()
+
+
+def join_verify_filter(left_cols, right_cols, pkeys, bkeys, filt):
+    """Hash-collision re-verification: when the key lane is inexact,
+    append key-equality conjuncts to the residual filter, so the residual
+    path drops collision rows and repairs outer rows from the surviving
+    matches."""
+    if not (_keys_inexact(left_cols, pkeys)
+            or _keys_inexact(right_cols, bkeys)):
+        return filt
+    eqs = [Call("=", (InputRef(pk, left_cols[pk].type),
+                      InputRef(bk, right_cols[bk].type)), BOOLEAN)
+           for pk, bk in zip(pkeys, bkeys)]
+    return and_all(([filt] if filt is not None else []) + eqs)
+
+
 class Executor:
     def __init__(self, catalogs: CatalogManager, session: Session,
                  device: torch.device):
         self.catalogs = catalogs
         self.session = session
         self.device = device
+        # (probe rows, build rows, output rows) of each join, in the
+        # order the joins finish
+        self.join_sizes: List[Tuple[int, int, int]] = []
 
     def execute(self, node: PlanNode) -> Batch:
         cancel = self.session.cancel
@@ -114,19 +154,10 @@ class Executor:
         par = int(self.session.get("task_concurrency")) or 1
         if node.handle.constraint is None and node.handle.limit is None \
                 and hasattr(conn, "table_row_count"):
-            # reserve before allocating, so an oversized table fails
-            # with the memory-limit error instead of a device OOM
             est = conn.table_row_count(node.handle)
             if est:
-                try:
-                    reserve_bytes(
-                        int(est), len(columns),
-                        int(self.session.get("query_max_memory_per_node")),
-                        f"table scan of {node.handle.table}")
-                except MemoryLimitExceeded as e:
-                    raise QueryError(
-                        str(e), error_name="EXCEEDED_LOCAL_MEMORY_LIMIT"
-                    ) from e
+                self._reserve(int(est), len(columns),
+                              f"table scan of {node.handle.table}")
         splits = conn.get_splits(node.handle, par)
         parts = [conn.read_split(s, columns).to(self.device)
                  for s in splits]
@@ -169,6 +200,243 @@ class Executor:
 
     def _exec_AggregationNode(self, node: AggregationNode) -> Batch:
         return _aggregate(node, self.execute(node.source), None)
+
+    def _exec_EnforceSingleRowNode(self, node: EnforceSingleRowNode
+                                   ) -> Batch:
+        src = self.execute(node.source)
+        n = src.num_rows_host()
+        if n > 1:
+            raise QueryError("Scalar sub-query has returned multiple rows")
+        if n == 0:
+            # one all-NULL row
+            return Batch({s: dc_replace(c, valid=torch.zeros(
+                c.capacity, dtype=torch.bool, device=c.device))
+                for s, c in src.columns.items()}, 1)
+        return src
+
+    # ------------------------------------------------------------------
+    # joins
+    # ------------------------------------------------------------------
+    def _exec_JoinNode(self, node: JoinNode) -> Batch:
+        jt = node.join_type
+        if jt == "right":
+            return self._exec_JoinNode(JoinNode(
+                node.right, node.left, "left",
+                tuple(JoinClause(c.right, c.left) for c in node.criteria),
+                node.filter))
+        pre_built = maybe_stream_join(self, node)
+        left = self.execute(node.left)
+        right = (pre_built if pre_built is not None
+                 else self.execute(node.right))
+        out = self._join(node, left, right)
+        self.join_sizes.append((left.num_rows_host(), right.num_rows_host(),
+                                out.num_rows_host()))
+        return out
+
+    def _join(self, node: JoinNode, left: Batch, right: Batch) -> Batch:
+        jt = node.join_type
+        if jt == "cross" or not node.criteria:
+            return self._cross_join(left, right, node.filter, jt)
+
+        pkeys = [c.left for c in node.criteria]
+        bkeys = [c.right for c in node.criteria]
+        filt = join_verify_filter(left.columns, right.columns, pkeys,
+                                  bkeys, node.filter)
+        width = len(left.columns) + len(right.columns)
+        if filt is None:
+            outer = jt in ("left", "full")
+            start, count, order = join_ops.match_counts(left, right, pkeys,
+                                                        bkeys)
+            eff = (torch.where(left.row_valid(), count.clamp(min=1), 0)
+                   if outer else count)
+            total = int(eff.sum())
+            self._check_batch_rows(total)
+            self._reserve(total, width, "join output")
+            out = join_ops.expand_join(left, right, start, count, order,
+                                       capacity_for(total),
+                                       "left" if outer else "inner")
+            if jt == "full":
+                out = self._append_right_unmatched(out, left, right, pkeys,
+                                                   bkeys)
+            return out
+        # residual filter: expand as inner candidates carrying probe and
+        # build positions, filter, then null-extend the outer rows from
+        # the surviving matches (a key match the filter rejects must
+        # still null-extend)
+        probe = (_with_pos(left, _PPOS) if jt in ("left", "full")
+                 else left)
+        build = _with_pos(right, _BPOS) if jt == "full" else right
+        start, count, order = join_ops.match_counts(probe, build, pkeys,
+                                                    bkeys)
+        total = int(count.sum())
+        if jt == "inner":
+            self._check_batch_rows(total)
+        self._reserve(total, width, "join candidates")
+        cand = join_ops.expand_join(probe, build, start, count, order,
+                                    capacity_for(total), "inner")
+        out = compact.filter_batch(cand, eval_predicate(filt, cand))
+        return self._repair_outer(out, left, right, jt)
+
+    @staticmethod
+    def _check_batch_rows(total: int) -> None:
+        if total > CONFIG.max_batch_rows:
+            raise QueryError(
+                "not yet ported: join output over max_batch_rows (host "
+                f"spill): {total} rows > {CONFIG.max_batch_rows}")
+
+    def _reserve(self, rows: int, n_lanes: int, what: str) -> None:
+        """Check an allocation against query_max_memory_per_node before
+        making it, so an oversized result fails with the memory-limit
+        error instead of a device OOM."""
+        limit = int(self.session.get("query_max_memory_per_node"))
+        try:
+            reserve_bytes(rows, n_lanes, limit, what)
+        except MemoryLimitExceeded as e:
+            raise QueryError(str(e), error_name="EXCEEDED_LOCAL_MEMORY_LIMIT"
+                             ) from e
+
+    def _cross_join(self, left: Batch, right: Batch, filt,
+                    jt: str = "inner") -> Batch:
+        """Cross or non-equi join (no equi criteria); for left/full outer
+        variants the positions ride through the filter, as in the
+        residual path."""
+        total = left.num_rows_host() * right.num_rows_host()
+        self._reserve(total, len(left.columns) + len(right.columns),
+                      "cross join output")
+        probe = (_with_pos(left, _PPOS) if jt in ("left", "full")
+                 else left)
+        build = _with_pos(right, _BPOS) if jt == "full" else right
+        start, count, order = join_ops.cross_counts(probe, build)
+        out = join_ops.expand_join(probe, build, start, count, order,
+                                   capacity_for(max(total, 1)), "inner")
+        if filt is not None:
+            out = compact.filter_batch(out, eval_predicate(filt, out))
+        return self._repair_outer(out, left, right, jt)
+
+    def _repair_outer(self, out: Batch, left: Batch, right: Batch,
+                      jt: str) -> Batch:
+        """Strip the position lanes; null-extend outer rows whose matches
+        all died in the filter."""
+        live_out = out.row_valid()
+        pp = out.column(_PPOS).data if jt in ("left", "full") else None
+        bb = out.column(_BPOS).data if jt == "full" else None
+        if pp is None and bb is None:
+            return out
+        out = Batch({s: c for s, c in out.columns.items()
+                     if s not in (_PPOS, _BPOS)}, out.num_rows)
+        if pp is not None:
+            unmatched = left.row_valid() & ~_hit(pp, live_out,
+                                                 left.capacity)
+            out = device_concat([out, _null_extend(left, right,
+                                                   unmatched)])
+        if bb is not None:
+            unmatched_b = right.row_valid() & ~_hit(bb, live_out,
+                                                    right.capacity)
+            out = device_concat([out, _null_extend_right(left, right,
+                                                         unmatched_b)])
+        return out
+
+    def _append_right_unmatched(self, out: Batch, left: Batch,
+                                right: Batch, pkeys, bkeys) -> Batch:
+        """FULL JOIN tail (no residual filter): right rows with no key
+        match, null-extended."""
+        _, count, _ = join_ops.match_counts(right, left, bkeys, pkeys)
+        unmatched = right.row_valid() & (count == 0)
+        return device_concat([out, _null_extend_right(left, right,
+                                                      unmatched)])
+
+    # ------------------------------------------------------------------
+    # semi-joins
+    # ------------------------------------------------------------------
+    def _exec_SemiJoinNode(self, node: SemiJoinNode) -> Batch:
+        src = self.execute(node.source)
+        filt = self.execute(node.filtering_source)
+        matched, key_null, build_null, nonempty = join_ops.semi_join_mask(
+            src, filt, [node.source_key], [node.filtering_key])
+        # x IN (...): TRUE if matched; FALSE if the build side is empty;
+        # NULL if the probe key is NULL or the build side holds a NULL
+        valid = matched | ~nonempty | (~key_null & ~build_null)
+        cols = dict(src.columns)
+        cols[node.output] = Column(BOOLEAN, matched, valid)
+        return Batch(cols, src.num_rows)
+
+    def _exec_SemiJoinMultiNode(self, node: SemiJoinMultiNode) -> Batch:
+        src = self.execute(node.source)
+        filt = self.execute(node.filtering_source)
+        skeys = list(node.source_keys)
+        fkeys = list(node.filtering_keys)
+        residual = (join_verify_filter(src.columns, filt.columns, skeys,
+                                       fkeys, node.filter)
+                    if skeys else node.filter)
+        cols = dict(src.columns)
+        if residual is None and skeys:
+            matched, _, _, _ = join_ops.semi_join_mask(src, filt, skeys,
+                                                       fkeys)
+            cols[node.output] = Column(BOOLEAN, matched, None)
+            return Batch(cols, src.num_rows)
+        # residual filter: expand the candidate matches, filter, then
+        # mark the probe rows with a surviving match
+        probe = _with_pos(src, _PPOS)
+        if skeys:
+            start, count, order = join_ops.match_counts(probe, filt, skeys,
+                                                        fkeys)
+        else:
+            start, count, order = join_ops.cross_counts(probe, filt)
+        total = int(count.sum())
+        self._reserve(total, len(probe.columns) + len(filt.columns),
+                      "semi-join candidates")
+        cand = join_ops.expand_join(probe, filt, start, count, order,
+                                    capacity_for(total), "inner")
+        live = cand.row_valid()
+        if residual is not None:
+            live = live & eval_predicate(residual, cand)
+        cols[node.output] = Column(
+            BOOLEAN, _hit(cand.column(_PPOS).data, live, src.capacity),
+            None)
+        return Batch(cols, src.num_rows)
+
+
+def _with_pos(b: Batch, name: str) -> Batch:
+    cols = dict(b.columns)
+    cols[name] = Column(BIGINT, torch.arange(b.capacity, dtype=torch.int64,
+                                             device=b.device))
+    return Batch(cols, b.num_rows)
+
+
+def _hit(pos: torch.Tensor, live: torch.Tensor, cap: int) -> torch.Tensor:
+    """[cap] mask of the positions that some live row carries. Every
+    write stores True (dead rows write to a spare slot), so duplicate
+    positions cannot race."""
+    out = torch.zeros(cap + 1, dtype=torch.bool, device=pos.device)
+    idx = torch.where(live, pos.clamp(0, cap - 1), cap)
+    return out.index_fill_(0, idx, True)[:cap]
+
+
+def _null_columns(cols: Dict[str, Column], cap: int,
+                  device: torch.device) -> Dict[str, Column]:
+    """All-NULL columns of the given types, ``cap`` rows each."""
+    def zeros(dtype):
+        return torch.zeros(cap, dtype=dtype, device=device)
+    return {s: Column(c.type, zeros(c.data.dtype), zeros(torch.bool),
+                      c.dictionary,
+                      None if c.data2 is None else zeros(torch.int64))
+            for s, c in cols.items()}
+
+
+def _null_extend(left: Batch, right: Batch, row_mask) -> Batch:
+    """Rows of ``left`` where mask, with all-NULL right columns."""
+    sub = compact.filter_batch(left, row_mask)
+    cols = dict(sub.columns)
+    cols.update(_null_columns(right.columns, sub.capacity, sub.device))
+    return Batch(cols, sub.num_rows)
+
+
+def _null_extend_right(left: Batch, right: Batch, row_mask) -> Batch:
+    """Rows of ``right`` where mask, with all-NULL left columns."""
+    sub = compact.filter_batch(right, row_mask)
+    cols = _null_columns(left.columns, sub.capacity, sub.device)
+    cols.update(sub.columns)
+    return Batch(cols, sub.num_rows)
 
 
 def _sort_keys(keys) -> List[sort_ops.SortKey]:

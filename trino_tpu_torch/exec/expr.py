@@ -1,11 +1,13 @@
 """Row-expression evaluation over Batches of torch tensors.
 
 Counterpart of ``trino_tpu/exec/expr.py``, for the subset the ported
-queries reach: column references, constants, casts between numeric types,
-Kleene AND/OR/NOT, IS NULL, comparisons (numbers, dates, dictionary
-strings), + - * / % on non-decimal numbers, negation, and adding or
-subtracting a day-time interval to a date. Anything else raises
-``EvalError("not yet ported: ...")``.
+queries reach: column references, constants, casts between numeric types
+(and from a short decimal to a number), Kleene AND/OR/NOT, IS NULL,
+comparisons (numbers, dates, dictionary strings), + - * / % on
+non-decimal numbers, + and - on short decimals, negation, adding or
+subtracting a day-time or year-month interval to a date, and the date
+fields (year, month, day, quarter, ... and EXTRACT of them from a DATE).
+Anything else raises ``EvalError("not yet ported: ...")``.
 
 Every evaluation returns a Column (value lane + validity lane); AND/OR
 implement the Kleene truth tables. A constant is a stride-0 view over one
@@ -22,8 +24,9 @@ import torch
 
 from ..columnar import Batch, Column, StringDictionary, take_clamped, \
     torch_dtype
+from ..ops.datetime import add_months, extract_field
 from ..rex import Call, Cast, Const, InputRef, RowExpr
-from ..types import (BOOLEAN, DATE, UNKNOWN, DecimalType,
+from ..types import (BIGINT, BOOLEAN, DATE, UNKNOWN, DecimalType,
                      IntervalYearMonth, Type, is_integral, is_string)
 
 
@@ -74,8 +77,20 @@ def const_column(e: Const, cap: int, device: torch.device) -> Column:
         d = StringDictionary(np.asarray([e.value], dtype=object))
         return Column(t, _full(0, cap, torch.int32, device), None, d)
     if isinstance(t, DecimalType):
-        raise EvalError(f"not yet ported: {t} constants")
+        if not t.is_short:
+            raise EvalError(f"not yet ported: {t} constants")
+        return Column(t, _full(_decimal_unscaled(e.value, t.scale), cap,
+                               torch.int64, device), None)
     return Column(t, _full(e.value, cap, torch_dtype(t), device), None)
+
+
+def _decimal_unscaled(v, scale: int) -> int:
+    """The unscaled integer of a decimal literal, exact and HALF_UP."""
+    if isinstance(v, int):
+        return v * 10 ** scale
+    from decimal import ROUND_HALF_UP, Context, Decimal
+    return int(Decimal(str(v)).scaleb(scale, Context(prec=80))
+               .to_integral_value(rounding=ROUND_HALF_UP))
 
 
 def _merge_valid(*cols: Column) -> Optional[torch.Tensor]:
@@ -100,6 +115,16 @@ def cast_column(src: Column, t: Type) -> Column:
         return const_column(Const(None, t), src.capacity, src.device)
     if is_string(s) and is_string(t):
         return dc_replace(src, type=t)
+    if isinstance(s, DecimalType) and src.data2 is None \
+            and (t.name in ("double", "real") or is_integral(t)):
+        # a true division by a device tensor: CUDA turns a python-scalar
+        # divisor into a multiply by its reciprocal, which rounds 35/100
+        # and others to the other neighbour
+        sv = src.data.to(torch.float64) / torch.full(
+            (), 10.0 ** s.scale, dtype=torch.float64, device=src.device)
+        if is_integral(t):
+            sv = _round_half_up(sv)
+        return Column(t, sv.to(torch_dtype(t)), src.valid)
     if isinstance(s, DecimalType) or isinstance(t, DecimalType) \
             or is_string(s) or is_string(t) or t.np_dtype is None \
             or s.np_dtype is None:
@@ -239,18 +264,46 @@ def _negate(e, batch):
     return dc_replace(a, data=-a.data, type=e.type)
 
 
+def _decimal_arith(op: str):
+    """+ and - on short decimals: rescale both sides to the result
+    scale, then add in int64."""
+    def h(e, batch):
+        a = eval_expr(e.args[0], batch)
+        b = eval_expr(e.args[1], batch)
+        t = e.type
+        if a.data2 is not None or b.data2 is not None or not t.is_short:
+            raise EvalError(f"not yet ported: decimal_{op} on {t}")
+        sa = a.type.scale if isinstance(a.type, DecimalType) else 0
+        sb = b.type.scale if isinstance(b.type, DecimalType) else 0
+        da = a.data.to(torch.int64) * 10 ** (t.scale - sa)
+        db = b.data.to(torch.int64) * 10 ** (t.scale - sb)
+        data = da + db if op == "+" else da - db
+        return Column(t, data, _merge_valid(a, b))
+    return h
+
+
 def _date_interval(op: str):
     def h(e, batch):
         a = eval_expr(e.args[0], batch)
         b = eval_expr(e.args[1], batch)
-        if e.args[1].type is IntervalYearMonth:
-            raise EvalError("not yet ported: year-month intervals")
         days = a.data.to(torch.int64)
         iv = b.data.to(torch.int64)
         if op == "-":
             iv = -iv
-        data = days + torch.div(iv, 86400000, rounding_mode="floor")
+        if e.args[1].type is IntervalYearMonth:
+            data = add_months(days, iv)
+        else:
+            data = days + torch.div(iv, 86400000, rounding_mode="floor")
         return Column(DATE, data.to(torch.int32), _merge_valid(a, b))
+    return h
+
+
+def _extract(field: str):
+    def h(e, batch):
+        a = eval_expr(e.args[0], batch)
+        if a.type is not DATE:
+            raise EvalError(f"not yet ported: {field}() of {a.type}")
+        return Column(BIGINT, extract_field(a.data, field), a.valid)
     return h
 
 
@@ -261,6 +314,12 @@ _DISPATCH: Dict[str, Callable] = {
     "+": _arith("+"), "-": _arith("-"), "*": _arith("*"),
     "/": _arith("/"), "%": _arith("%"),
     "negate": _negate,
+    "decimal_+": _decimal_arith("+"), "decimal_-": _decimal_arith("-"),
     "date_add_interval": _date_interval("+"),
     "date_sub_interval": _date_interval("-"),
+    "year": _extract("year"), "month": _extract("month"),
+    "quarter": _extract("quarter"), "week": _extract("week"),
+    "day": _extract("day"), "day_of_month": _extract("day"),
+    "day_of_week": _extract("day_of_week"), "dow": _extract("day_of_week"),
+    "day_of_year": _extract("day_of_year"), "doy": _extract("day_of_year"),
 }

@@ -1,11 +1,20 @@
-"""Grouped aggregation over torch tensors — the packed small-domain path.
+"""Grouped aggregation over torch tensors.
 
-Counterpart of ``trino_tpu/ops/groupby.py``. When every GROUP BY key has a
-small static domain (dictionary codes, booleans) the keys pack into one
-int32 group id per row. Float sums and counts then go through the
-``grouped_sums`` CUDA kernel (ops/cuda_groupby.py) in one pass over the
-lanes; other kinds (min, max, any_value, integer sums) are per-group
-masked reductions. The general lexsort/segment path is not ported yet.
+Counterpart of ``trino_tpu/ops/groupby.py``, with its two paths:
+
+- packed: when every GROUP BY key has a small static domain (dictionary
+  codes, booleans) the keys pack into one int32 group id per row. Float
+  sums and counts then go through the ``grouped_sums`` CUDA kernel
+  (ops/cuda_groupby.py) in one pass over the lanes; other kinds (min,
+  max, any_value, integer sums) are per-group masked reductions.
+- general: a stable lexsort over exact equality lanes of the keys (u64
+  patterns, sorted in their unsigned order by the sign flip of
+  ops/hashing.py), group ids from key-change boundaries, then segment
+  reductions. The groups come out in lexsort order, as in the JAX
+  engine. Float sums reduce each group's run of sorted rows in a fixed
+  order (``torch.segment_reduce``), never by floating-point atomics, so
+  two runs give bit-identical sums; integer sums, counts, min and max
+  may use any scatter.
 
 Aggregate null semantics as in SQL: sum/min/max over zero non-null
 inputs are NULL; count is 0.
@@ -23,6 +32,9 @@ from ..columnar import Batch, Column, take_clamped
 from ..config import capacity_for
 from ..types import BIGINT, DOUBLE, REAL, DecimalType, Type, is_string
 from . import cuda_groupby
+from .compact import mask_to_gather
+from .hashing import equality_lanes, to_signed_order
+from .sort import lexsort
 
 _F64 = torch.float64
 _I64 = torch.int64
@@ -85,11 +97,142 @@ def group_aggregate(batch: Batch, key_names: Sequence[str],
     gcap = groups_capacity or batch.capacity
     out = _packed_group_aggregate(batch, key_names, aggs, gcap, live,
                                   clamp=groups_capacity is None)
-    if out is None:
+    if out is not None:
+        return out
+    for agg in aggs:
+        if agg.kind not in _FAST_KINDS:
+            raise NotImplementedError(
+                f"not yet ported: aggregate {agg.kind} in the general "
+                "GROUP BY path")
+    cap = batch.capacity
+    dev = batch.device
+    live = batch.row_valid() if live is None else live
+
+    lanes = _key_lanes(batch, key_names, live)
+    order = lexsort([to_signed_order(x) for x in lanes])
+    live_s = live[order]
+    # key-change boundaries over the sorted live prefix
+    changed = torch.zeros(cap, dtype=torch.bool, device=dev)
+    for lane in lanes[1:]:
+        srt = lane[order]
+        changed |= srt != torch.roll(srt, 1)
+    changed[0] = True
+    boundary = changed & live_s
+    gid = (torch.cumsum(boundary, 0) - 1).clamp(0, gcap - 1)
+    num_groups = boundary.sum(dtype=_I64)
+    # first sorted position of each group (the fixed-size nonzero)
+    firsts, _ = mask_to_gather(boundary)
+    if gcap <= cap:
+        firsts = firsts[:gcap]
+    else:
+        firsts = torch.cat([firsts, torch.zeros(gcap - cap, dtype=_I64,
+                                                device=dev)])
+    grp_rows = take_clamped(order, firsts)
+    seg = _Segments(order, gid, live_s, gcap)
+
+    out_cols: Dict[str, Column] = {
+        name: batch.column(name).gather(grp_rows) for name in key_names}
+    for agg in aggs:
+        out_cols[agg.output] = _segment_agg(batch, agg, seg)
+    return Batch(out_cols, num_groups)
+
+
+# u64 max as an int64 pattern: the key value of dead rows
+_U64MAX = -1
+
+
+def _key_lanes(batch: Batch, key_names: Sequence[str],
+               live: torch.Tensor) -> List[torch.Tensor]:
+    """Exact equality lanes (u64 patterns in int64), most significant
+    first: liveness, then per key a NULL lane (when the column has one)
+    and its value lanes. NULL is its own group value."""
+    lanes: List[torch.Tensor] = [(~live).to(_I64)]
+    for name in key_names:
+        col = batch.column(name)
+        col_lanes = equality_lanes(col.data)
+        if col.data2 is not None:
+            raise NotImplementedError(
+                f"not yet ported: GROUP BY over {col.type}")
+        if col.valid is not None:
+            lanes.append((~col.valid).to(_I64))
+            col_lanes = [torch.where(col.valid, u, 0) for u in col_lanes]
+        lanes.extend(torch.where(live, u, _U64MAX) for u in col_lanes)
+    return lanes
+
+
+@dataclass
+class _Segments:
+    """The sorted row order and each sorted row's group id (nondecreasing,
+    clamped into [0, gcap))."""
+    order: torch.Tensor
+    gid: torch.Tensor
+    live_s: torch.Tensor
+    gcap: int
+
+    def count(self, mask: torch.Tensor) -> torch.Tensor:
+        out = torch.zeros(self.gcap, dtype=_I64, device=mask.device)
+        return out.index_add_(0, self.gid, mask.to(_I64))
+
+    def sum_float(self, vals: torch.Tensor) -> torch.Tensor:
+        # each group's rows are one run of the sorted order: reduce the
+        # runs in a fixed order, with no floating-point atomics
+        lengths = torch.bincount(self.gid, minlength=self.gcap)
+        return torch.segment_reduce(vals, "sum", lengths=lengths,
+                                    unsafe=True)
+
+    def reduce(self, vals: torch.Tensor, how: str, ident) -> torch.Tensor:
+        out = torch.full((self.gcap,), ident, dtype=vals.dtype,
+                         device=vals.device)
+        return out.scatter_reduce_(0, self.gid, vals, how)
+
+
+def _segment_agg(batch: Batch, agg: AggInput, seg: _Segments) -> Column:
+    order = seg.order
+    mask = seg.live_s
+    if agg.mask is not None:
+        mcol = batch.column(agg.mask)
+        m = mcol.data.to(torch.bool)
+        if mcol.valid is not None:
+            m = m & mcol.valid
+        mask = mask & m[order]
+    if agg.kind == "count_star":
+        return Column(BIGINT, seg.count(mask), None)
+
+    col = batch.column(agg.input)
+    valid = mask if col.valid is None else mask & col.valid[order]
+    nvalid = seg.count(valid)
+    if agg.kind == "count":
+        return Column(BIGINT, nvalid, None)
+    group_valid = nvalid > 0
+    if col.data2 is not None or (
+            isinstance(col.type, DecimalType) and agg.kind == "sum"
+            and col.capacity * 10 ** col.type.precision >= 2 ** 63):
         raise NotImplementedError(
-            "not yet ported: general GROUP BY path (keys without a small "
-            f"static domain, or aggregates {[a.kind for a in aggs]})")
-    return out
+            f"not yet ported: {agg.kind} over {col.type} (Int128)")
+    vals = col.data[order]
+
+    if agg.kind == "sum":
+        if vals.is_floating_point():
+            data = seg.sum_float(torch.where(valid, vals, 0.0))
+        else:
+            work = torch.where(valid, vals.to(_I64), 0)
+            data = torch.zeros(seg.gcap, dtype=_I64,
+                               device=vals.device).index_add_(
+                0, seg.gid, work)
+        return Column(_sum_type(col.type), data, group_valid)
+
+    if agg.kind in ("min", "max"):
+        how = "amin" if agg.kind == "min" else "amax"
+        return _min_max(col, vals, agg.kind, group_valid,
+                        lambda work, ident: seg.reduce(
+                            torch.where(valid, work, ident), how, ident))
+
+    # any_value: the first valid row of each group
+    cap = order.shape[0]
+    pos = torch.arange(cap, dtype=_I64, device=order.device)
+    first = seg.reduce(torch.where(valid, pos, cap), "amin", cap)
+    return replace(col.gather(take_clamped(order, first)),
+                   valid=group_valid)
 
 
 def _packed_group_aggregate(batch: Batch, key_names: Sequence[str],
@@ -231,6 +374,28 @@ def _identity(kind: str, dtype: torch.dtype):
     return info.max if kind == "min" else info.min
 
 
+def _min_max(col: Column, vals: torch.Tensor, kind: str,
+             group_valid: torch.Tensor, reduce) -> Column:
+    """MIN/MAX of ``vals`` by ``reduce(work, identity)`` per group. A
+    dictionary column reduces its collation ranks (codes follow insertion
+    order) and decodes the winning rank back to a code; a bool lane
+    reduces as int32."""
+    if is_string(col.type):
+        ranks = col.dictionary.rank_codes()
+        code_by_rank = np.argsort(ranks).astype(np.int32)
+        rvals = take_clamped(torch.from_numpy(ranks).to(vals.device), vals)
+        best = reduce(rvals, len(ranks) if kind == "min" else -1)
+        data = take_clamped(torch.from_numpy(code_by_rank).to(vals.device),
+                            best)
+        return Column(col.type, data, group_valid, col.dictionary)
+    as_bool = vals.dtype == torch.bool
+    work = vals.to(torch.int32) if as_bool else vals
+    data = reduce(work, _identity(kind, work.dtype))
+    if as_bool:
+        data = data.to(torch.bool)
+    return Column(col.type, data, group_valid)
+
+
 def _masked_agg(batch: Batch, agg: AggInput, gmasks: List[torch.Tensor],
                 nseg: int) -> Column:
     """One aggregate as nseg masked reductions -> [nseg] lanes."""
@@ -264,25 +429,10 @@ def _masked_agg(batch: Batch, agg: AggInput, gmasks: List[torch.Tensor],
         return Column(_sum_type(col.type), data, group_valid)
     if agg.kind in ("min", "max"):
         red = torch.amin if agg.kind == "min" else torch.amax
-        if is_string(col.type):
-            ranks = col.dictionary.rank_codes()
-            code_by_rank = np.argsort(ranks).astype(np.int32)
-            rvals = take_clamped(torch.from_numpy(ranks).to(vals.device),
-                                 vals)
-            ident = len(ranks) if agg.kind == "min" else -1
-            best = torch.stack([red(torch.where(g, rvals, ident))
-                                for g in gmasks])
-            data = take_clamped(torch.from_numpy(code_by_rank)
-                                .to(vals.device), best)
-            return Column(col.type, data, group_valid, col.dictionary)
-        as_bool = vals.dtype == torch.bool
-        work = vals.to(torch.int32) if as_bool else vals
-        ident = _identity(agg.kind, work.dtype)
-        data = torch.stack([red(torch.where(g, work, ident))
-                            for g in gmasks])
-        if as_bool:
-            data = data.to(torch.bool)
-        return Column(col.type, data, group_valid)
+        return _min_max(col, vals, agg.kind, group_valid,
+                        lambda work, ident: torch.stack(
+                            [red(torch.where(g, work, ident))
+                             for g in gmasks]))
     # any_value: first valid row per group
     cap = vals.shape[0]
     pos = torch.arange(cap, dtype=_I64, device=vals.device)

@@ -75,16 +75,21 @@ def sort_lanes(batch: Batch, keys: Sequence[SortKey]) -> List[torch.Tensor]:
     return lanes
 
 
-def sort_order(batch: Batch, keys: Sequence[SortKey]) -> torch.Tensor:
-    """Stable permutation realizing ORDER BY: one stable sort per lane,
+def lexsort(lanes: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Stable permutation ordering rows by the lanes, most significant
+    first (``jnp.lexsort(lanes[::-1])``): one stable sort per lane,
     least significant first."""
-    lanes = sort_lanes(batch, keys)
-    perm = torch.arange(batch.capacity, dtype=torch.int64,
-                        device=batch.device)
+    perm = torch.arange(lanes[0].shape[0], dtype=torch.int64,
+                        device=lanes[0].device)
     for lane in reversed(lanes):
         step = torch.sort(lane[perm], stable=True).indices
         perm = perm[step]
     return perm
+
+
+def sort_order(batch: Batch, keys: Sequence[SortKey]) -> torch.Tensor:
+    """Stable permutation realizing ORDER BY."""
+    return lexsort(sort_lanes(batch, keys))
 
 
 def sort_batch(batch: Batch, keys: Sequence[SortKey]) -> Batch:

@@ -1,10 +1,14 @@
-"""Where TPC-H q1's time goes in the PyTorch engine, on one CUDA card.
+"""Where a TPC-H query's time goes in the PyTorch engine, on one CUDA card.
 
-    python3 -m trino_tpu_torch.profile_q1 [--schema sf10] [--reps 3]
+    python3 -m trino_tpu_torch.profile_q1 [--query 1] [--schema sf10]
+                                          [--reps 3]
 
-Prints one JSON object: the card, warm q1 wall times, the table scan's
-share (device generation + concat, timed alone), the device-busy share
-from torch.profiler, and the kernels with the most device time.
+Prints one JSON object: the card, cold and warm wall times of the query,
+the per-layer split of ``--reps`` more runs (the scan of each table,
+joins, aggregations, expressions, sort/TopN: the card is synchronised
+around every plan node, and each node's own time goes to its layer), the
+device-busy share from torch.profiler, and the operators with the most
+device time.
 """
 
 from __future__ import annotations
@@ -13,8 +17,19 @@ import argparse
 import json
 import subprocess
 import time
+from typing import Dict
 
 import torch
+
+from .exec.executor import Executor
+
+# plan node -> layer; Filter and Project nodes are "expressions", and a
+# filter folded into an aggregation counts toward the aggregation
+_LAYERS = {"TableScanNode": "scan", "JoinNode": "join",
+           "SemiJoinNode": "join", "SemiJoinMultiNode": "join",
+           "AggregationNode": "aggregation", "SortNode": "sort_topn",
+           "TopNNode": "sort_topn", "FilterNode": "expressions",
+           "ProjectNode": "expressions"}
 
 
 def _sync_wall(fn) -> float:
@@ -25,36 +40,60 @@ def _sync_wall(fn) -> float:
     return time.perf_counter() - t0
 
 
+class TimedExecutor(Executor):
+    """An executor that synchronises the card around every plan node and
+    adds each node's own wall time (its time less its children's) to the
+    node's layer in ``layers``."""
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        self.layers: Dict[str, float] = {}
+        self._children_s = 0.0
+
+    def execute(self, node):
+        outer, self._children_s = self._children_s, 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = super().execute(node)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        layer = _LAYERS.get(type(node).__name__, "other")
+        if layer == "scan":
+            layer = f"scan.{node.handle.table}"
+        self.layers[layer] = (self.layers.get(layer, 0.0) + total
+                              - self._children_s)
+        self._children_s = outer + total
+        return out
+
+
 def main() -> None:
-    from .exec.executor import Executor
-    from .plan.nodes import TableScanNode
     from .runner import LocalQueryRunner
     from .session import Session
     from .benchmarks.tpch_queries import TPCH_QUERIES
 
-    q1 = TPCH_QUERIES[1]
     ap = argparse.ArgumentParser()
+    ap.add_argument("--query", type=int, default=1)
     ap.add_argument("--schema", default="sf10")
     ap.add_argument("--reps", type=int, default=3)
     args = ap.parse_args()
+    sql = TPCH_QUERIES[args.query]
 
     runner = LocalQueryRunner(Session(catalog="tpch", schema=args.schema))
-    cold = _sync_wall(lambda: runner.execute(q1))
-    warm = [_sync_wall(lambda: runner.execute(q1))
+    cold = _sync_wall(lambda: runner.execute(sql))
+    warm = [_sync_wall(lambda: runner.execute(sql))
             for _ in range(args.reps)]
-
-    scan = runner.plan_sql(q1)
-    while not isinstance(scan, TableScanNode):
-        scan = scan.sources[0]
-    ex = Executor(runner.catalogs, runner.session, runner.device)
-    scan_s = [_sync_wall(lambda: ex.execute(scan))
-              for _ in range(args.reps)]
+    plan = runner.plan_sql(sql)
+    layers = []
+    for _ in range(args.reps):
+        ex = TimedExecutor(runner.catalogs, runner.session, runner.device)
+        ex.execute(plan)
+        layers.append(ex.layers)
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        profiled = _sync_wall(lambda: runner.execute(q1))
+        profiled = _sync_wall(lambda: runner.execute(sql))
     events = prof.key_averages()
 
     def dev_us(e):
@@ -72,8 +111,9 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     print(json.dumps({
-        "card": card, "schema": args.schema, "cold_s": cold,
-        "warm_s": warm, "scan_s": scan_s, "profiled_wall_s": profiled,
+        "card": card, "query": args.query, "schema": args.schema,
+        "cold_s": cold, "warm_s": warm, "layers_s": layers,
+        "profiled_wall_s": profiled,
         "device_busy_s": busy_s, "kernel_launches": sum(
             e.count for e in kernels),
         "busy_share_of_profiled_wall": busy_s / profiled,

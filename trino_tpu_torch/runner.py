@@ -9,8 +9,8 @@ raises (config.resolve_device).
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
-from typing import List, Optional
+from dataclasses import dataclass, field
+from typing import List, Optional, Tuple
 
 from .catalog import CatalogManager
 from .config import DeviceLike, resolve_device
@@ -34,6 +34,8 @@ class QueryResult:
     rows: List[list]
     query_id: str = ""
     wall_s: float = 0.0
+    # (probe rows, build rows, output rows) of each join the query ran
+    join_sizes: List[Tuple[int, int, int]] = field(default_factory=list)
 
 
 class LocalQueryRunner:
@@ -85,9 +87,9 @@ class LocalQueryRunner:
 
     def _run_query(self, stmt: A.QueryStatement) -> QueryResult:
         plan = self._plan(stmt)
-        batch = Executor(self.catalogs, self.session,
-                         self.device).execute(plan)
+        ex = Executor(self.catalogs, self.session, self.device)
+        batch = ex.execute(plan)
         schema = batch.schema()
         return QueryResult(list(plan.names),
                            [schema[s] for s in plan.symbols],
-                           batch.to_pylist())
+                           batch.to_pylist(), join_sizes=ex.join_sizes)
