@@ -2,16 +2,17 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel from trino_tpu_torch/csrc, drives TPC-H q1, q3
-and q6 at tpch.sf10 through
+Builds every CUDA kernel from trino_tpu_torch/csrc, drives TPC-H q1, q3,
+q6, q9, q12, q14 and q18 at tpch.sf10 through
 ``trino_tpu_torch.runner.LocalQueryRunner().execute``, holds each kernel
 against its plain PyTorch version, and checks each query's rows against an
 independent numpy reference over the lanes the card generates (themselves
-held bit-identical to the numpy generators). q3 runs four times; its rows
-must be bit-identical every time. Each phase prints one JSON line; the
-line before the last lists the kernels, the last line is the result. Any
-failed phase exits non-zero without printing a result, as does a machine
-without CUDA.
+held bit-identical to the numpy generators) and the tables the host
+generates. q3 runs four times; its rows must be bit-identical every time.
+q18 must spill its join outputs to host memory. Each phase prints one
+JSON line; the line before the last lists the kernels, the last line is
+the result. Any failed phase exits non-zero without printing a result,
+as does a machine without CUDA.
 """
 
 from __future__ import annotations
@@ -35,6 +36,12 @@ Q1_COLS = ["l_quantity", "l_extendedprice", "l_discount", "l_tax",
 Q3_L_COLS = ["l_orderkey", "l_extendedprice", "l_discount", "l_shipdate"]
 Q3_O_COLS = ["o_orderkey", "o_custkey", "o_orderdate", "o_shippriority"]
 Q6_COLS = ["l_quantity", "l_extendedprice", "l_discount", "l_shipdate"]
+Q9_L_COLS = ["l_orderkey", "l_partkey", "l_suppkey", "l_quantity",
+             "l_extendedprice", "l_discount"]
+Q12_L_COLS = ["l_orderkey", "l_shipmode", "l_commitdate", "l_receiptdate",
+              "l_shipdate"]
+Q14_L_COLS = ["l_partkey", "l_extendedprice", "l_discount", "l_shipdate"]
+Q18_O_COLS = ["o_orderkey", "o_custkey", "o_orderdate", "o_totalprice"]
 WARM_REPS = 3
 
 
@@ -160,7 +167,7 @@ def days(y: int, m: int, d: int) -> int:
     return (datetime.date(y, m, d) - datetime.date(1970, 1, 1)).days
 
 
-def run_timed(runner, sql: str, cuda_groupby):
+def run_timed(runner, sql: str, cuda_groupby, reps: int = WARM_REPS):
     """(cold result, warm results, cold s, median warm s, peak bytes,
     grouped_sums launches in the cold run)"""
     torch.cuda.reset_peak_memory_stats()
@@ -173,7 +180,7 @@ def run_timed(runner, sql: str, cuda_groupby):
     launches = cuda_groupby.LAUNCHES
     peak = torch.cuda.max_memory_allocated()
     warm, walls = [], []
-    for _ in range(WARM_REPS):
+    for _ in range(reps):
         t0 = time.perf_counter()
         warm.append(runner.execute(sql))
         torch.cuda.synchronize()
@@ -302,6 +309,220 @@ def phase_q6(runner, cuda_groupby, tpch_mod, device_mod, q6):
          bit_identical=same, result=cold.rows, reference=want)
     check(ok, "q6 differs from the numpy reference")
     check(same, "q6 differs between runs")
+
+
+def card_lanes(device_mod, table: str, cols, sf: float, n_orders: int):
+    """Whole-table lanes as the card generates them, copied to the host:
+    (lanes, dictionaries, rows)."""
+    gen = (device_mod.lineitem_batch if table == "lineitem"
+           else device_mod.orders_batch)
+    batch = gen(0, n_orders, sf, list(cols), DEVICE)
+    lanes, n = host_lanes(batch, cols)
+    dicts = {c: list(batch.column(c).dictionary.values) for c in cols
+             if batch.column(c).dictionary is not None}
+    del batch
+    torch.cuda.empty_cache()
+    return lanes, dicts, n
+
+
+def emit_query(name, cold, warm, cold_s, warm_s, peak, launches, n_li,
+               **extra) -> bool:
+    """Print a query phase; True when the warm runs equal the cold one."""
+    same = all(w.rows == cold.rows for w in warm)
+    emit(name, schema=f"tpch.{SCHEMA}", rows=len(cold.rows),
+         lineitem_rows=n_li, cold_s=cold_s, warm_s=warm_s,
+         warm_runs=len(warm), warm_rows_per_s=n_li / warm_s,
+         max_memory_allocated=peak, spill_bytes=cold.spill_bytes,
+         join_sizes=cold.join_sizes, grouped_sums_launches=launches,
+         same_rows_every_run=same, **extra)
+    return same
+
+
+def q9_reference(tpch_mod, device_mod):
+    """q9 with numpy alone: the green parts by a substring test over the
+    host generator's p_name values, the partsupp cost by searchsorted on
+    (partkey, suppkey), supplier nations and order years by index, then
+    a bincount per (nation, year). Returns (rows, join sizes, lineitem
+    rows)."""
+    sf = tpch_mod.SCHEMAS[SCHEMA]
+    n_orders = tpch_mod.table_rows("orders", sf)
+    n_part = tpch_mod.table_rows("part", sf)
+    n_supp = tpch_mod.table_rows("supplier", sf)
+    host = tpch_mod.TpchConnector(device="cpu")
+    li, _, n_li = card_lanes(device_mod, "lineitem", Q9_L_COLS, sf,
+                             n_orders)
+    od, _, _ = card_lanes(device_mod, "orders",
+                          ["o_orderkey", "o_orderdate"], sf, n_orders)
+    name = host._part(np.arange(1, n_part + 1, dtype=np.int64), sf,
+                      ["p_name"]).column("p_name")
+    green_value = np.asarray(["green" in str(v)
+                              for v in name.dictionary.values])
+    green = green_value[name.data[:n_part].numpy()]
+    m = green[li["l_partkey"] - 1]
+    lk, pk, sk = (li[c][m] for c in ("l_orderkey", "l_partkey",
+                                     "l_suppkey"))
+    ps = host._partsupp(np.arange(1, 4 * n_part + 1, dtype=np.int64), sf,
+                        ["ps_partkey", "ps_suppkey", "ps_supplycost"])
+    ps_key = (ps.column("ps_partkey").data[:4 * n_part].numpy()
+              * (n_supp + 1) + ps.column("ps_suppkey").data[:4 * n_part]
+              .numpy())
+    ps_order = np.argsort(ps_key, kind="stable")
+    want_key = pk * (n_supp + 1) + sk
+    pos = np.clip(np.searchsorted(ps_key[ps_order], want_key), 0,
+                  4 * n_part - 1)
+    check(bool(np.all(ps_key[ps_order][pos] == want_key)),
+          "q9 reference: lineitem row without its partsupp row")
+    cost = ps.column("ps_supplycost").data[:4 * n_part].numpy()[
+        ps_order[pos]]
+    nation = host._supplier(np.arange(1, n_supp + 1, dtype=np.int64), sf,
+                            ["s_nationkey"]).column("s_nationkey").data[
+        :n_supp].numpy()[sk - 1]
+    opos = np.searchsorted(od["o_orderkey"], lk)
+    check(bool(np.all(od["o_orderkey"][opos] == lk)),
+          "q9 reference: lineitem row without its order")
+    year = (od["o_orderdate"][opos].astype("datetime64[D]")
+            .astype("datetime64[Y]").astype(np.int64) + 1970)
+    amount = (li["l_extendedprice"][m] * (1 - li["l_discount"][m])
+              - cost * li["l_quantity"][m])
+    y0 = int(year.min())
+    span = int(year.max()) - y0 + 1
+    grp = nation * span + (year - y0)
+    sums = np.bincount(grp, weights=amount, minlength=25 * span)
+    cnt = np.bincount(grp, minlength=25 * span)
+    rows = [[tpch_mod.NATIONS[g // span][0], y0 + g % span, float(sums[g])]
+            for g in np.nonzero(cnt)[0]]
+    rows.sort(key=lambda r: (r[0], -r[1]))
+    n_green = int(green.sum())
+    kept = int(m.sum())
+    sizes = [(n_li, n_supp, n_li), (n_li, 25, n_li),
+             (n_li, n_green, kept), (kept, 4 * n_part, kept),
+             (n_orders, kept, kept)]
+    return rows, sizes, n_li
+
+
+def q12_reference(tpch_mod, device_mod):
+    """q12 with numpy alone: the lineitem filters, the orders join by
+    searchsorted on the unique o_orderkey, counts per l_shipmode and
+    priority class."""
+    sf = tpch_mod.SCHEMAS[SCHEMA]
+    n_orders = tpch_mod.table_rows("orders", sf)
+    li, ld, n_li = card_lanes(device_mod, "lineitem", Q12_L_COLS, sf,
+                              n_orders)
+    od, odict, _ = card_lanes(device_mod, "orders",
+                              ["o_orderkey", "o_orderpriority"], sf,
+                              n_orders)
+    modes = ld["l_shipmode"]
+    code = li["l_shipmode"]
+    keep = (((code == modes.index("MAIL")) | (code == modes.index("SHIP")))
+            & (li["l_commitdate"] < li["l_receiptdate"])
+            & (li["l_shipdate"] < li["l_commitdate"])
+            & (li["l_receiptdate"] >= days(1994, 1, 1))
+            & (li["l_receiptdate"] < days(1995, 1, 1)))
+    lk = li["l_orderkey"][keep]
+    pos = np.searchsorted(od["o_orderkey"], lk)
+    check(bool(np.all(od["o_orderkey"][pos] == lk)),
+          "q12 reference: lineitem row without its order")
+    prios = odict["o_orderpriority"]
+    pc = od["o_orderpriority"][pos]
+    high = (pc == prios.index("1-URGENT")) | (pc == prios.index("2-HIGH"))
+    mode = code[keep]
+    rows = []
+    for name in sorted(["MAIL", "SHIP"]):
+        mm = mode == modes.index(name)
+        rows.append([name, int((mm & high).sum()), int((mm & ~high).sum())])
+    kept = int(keep.sum())
+    return rows, [(n_orders, kept, kept)], n_li
+
+
+def q14_reference(tpch_mod, device_mod):
+    """q14 with numpy alone: one month of lineitem and a gather of
+    p_type by partkey from the host generator."""
+    sf = tpch_mod.SCHEMAS[SCHEMA]
+    n_orders = tpch_mod.table_rows("orders", sf)
+    n_part = tpch_mod.table_rows("part", sf)
+    li, _, n_li = card_lanes(device_mod, "lineitem", Q14_L_COLS, sf,
+                             n_orders)
+    keep = ((li["l_shipdate"] >= days(1995, 9, 1))
+            & (li["l_shipdate"] < days(1995, 10, 1)))
+    ptype = tpch_mod.TpchConnector(device="cpu")._part(
+        np.arange(1, n_part + 1, dtype=np.int64), sf,
+        ["p_type"]).column("p_type")
+    promo_value = np.asarray([str(v).startswith("PROMO")
+                              for v in ptype.dictionary.values])
+    promo = promo_value[ptype.data[:n_part].numpy()][
+        li["l_partkey"][keep] - 1]
+    rev = li["l_extendedprice"][keep] * (1 - li["l_discount"][keep])
+    want = 100.0 * float(np.sum(np.where(promo, rev, 0.0))) \
+        / float(np.sum(rev))
+    kept = int(keep.sum())
+    return [[want]], [(kept, n_part, kept)], n_li
+
+
+def q18_reference(tpch_mod, device_mod):
+    """q18 with numpy alone over the card's lineitem and orders lanes:
+    the quantity per order by searchsorted and bincount, the orders over
+    300, the top 100 by (o_totalprice desc, o_orderdate). The port's copy
+    of the JAX package's q18 oracle, fed the card's lanes."""
+    sf = tpch_mod.SCHEMAS[SCHEMA]
+    n_orders = tpch_mod.table_rows("orders", sf)
+    n_cust = tpch_mod.table_rows("customer", sf)
+    li, _, n_li = card_lanes(device_mod, "lineitem",
+                             ["l_orderkey", "l_quantity"], sf, n_orders)
+    od, _, _ = card_lanes(device_mod, "orders", Q18_O_COLS, sf, n_orders)
+    pos = np.searchsorted(od["o_orderkey"], li["l_orderkey"])
+    check(bool(np.all(od["o_orderkey"][pos] == li["l_orderkey"])),
+          "q18 reference: lineitem row without its order")
+    qty = np.bincount(pos, weights=li["l_quantity"], minlength=n_orders)
+    sel = np.nonzero(qty > 300.0)[0]
+    tp = od["o_totalprice"][sel]
+    top = sel[np.lexsort((od["o_orderdate"][sel], -tp))[:100]]
+    epoch = datetime.date(1970, 1, 1)
+    rows = [[f"Customer#{int(od['o_custkey'][i]):09d}",
+             int(od["o_custkey"][i]), int(od["o_orderkey"][i]),
+             epoch + datetime.timedelta(days=int(od["o_orderdate"][i])),
+             float(od["o_totalprice"][i]), float(qty[i])] for i in top]
+    return rows, [(n_li, n_orders, n_li), (n_li, n_cust, n_li)], n_li
+
+
+def phase_query(name, runner, cuda_groupby, tpch_mod, device_mod, sql,
+                reference, reps, expr_mod=None):
+    """One new-slice query at sf10: cold and warm walls, rows/s, peak
+    memory, spill bytes, join sizes and grouped_sums launches, its rows
+    and join sizes against the numpy reference. For q9 the warm runs
+    also time the host dictionary transforms (LIKE over p_name)."""
+    extra = {}
+    if expr_mod is not None:
+        spent = [0.0]
+        inner = expr_mod._dict_transform
+
+        def timed(*args):
+            t0 = time.perf_counter()
+            out = inner(*args)
+            spent[0] += time.perf_counter() - t0
+            return out
+        expr_mod._dict_transform = timed
+    try:
+        cold, warm, cold_s, warm_s, peak, launches = run_timed(
+            runner, sql, cuda_groupby, reps)
+    finally:
+        if expr_mod is not None:
+            expr_mod._dict_transform = inner
+    if expr_mod is not None:
+        extra["dict_transform_s_per_run"] = spent[0] / (1 + reps)
+    torch.cuda.empty_cache()
+    want, sizes, n_li = reference(tpch_mod, device_mod)
+    ok = rows_match(cold.rows, want)
+    sizes_ok = [tuple(x) for x in cold.join_sizes] == sizes
+    same = emit_query(name, cold, warm, cold_s, warm_s, peak, launches,
+                      n_li, reference_join_sizes=sizes,
+                      matches_numpy_reference=ok, first_row=cold.rows[0]
+                      if cold.rows else None, reference_rows=len(want),
+                      **extra)
+    check(len(cold.rows) == len(want) and ok,
+          f"{name} rows differ from the numpy reference")
+    check(sizes_ok, f"{name} join sizes differ from the numpy reference")
+    check(same, f"{name} rows differ between runs")
+    return cold
 
 
 def phase_q1_check(rows, tpch_mod, device_mod, cold, warm, launches, peak):
@@ -463,6 +684,7 @@ def main() -> int:
         from trino_tpu_torch.benchmarks.tpch_queries import TPCH_QUERIES
         from trino_tpu_torch.connectors import tpch as tpch_mod
         from trino_tpu_torch.connectors import tpch_device as device_mod
+        from trino_tpu_torch.exec import expr as expr_mod
         from trino_tpu_torch.ops import cuda_groupby
     except ImportError as e:
         print(f"chip_smoke: the trino_tpu_torch package is missing: {e}",
@@ -482,6 +704,15 @@ def main() -> int:
                  TPCH_QUERIES[3])
         phase_q6(runner, cuda_groupby, tpch_mod, device_mod,
                  TPCH_QUERIES[6])
+        phase_query("q12", runner, cuda_groupby, tpch_mod, device_mod,
+                    TPCH_QUERIES[12], q12_reference, 3)
+        phase_query("q14", runner, cuda_groupby, tpch_mod, device_mod,
+                    TPCH_QUERIES[14], q14_reference, 3)
+        phase_query("q9", runner, cuda_groupby, tpch_mod, device_mod,
+                    TPCH_QUERIES[9], q9_reference, 2, expr_mod)
+        q18 = phase_query("q18", runner, cuda_groupby, tpch_mod,
+                          device_mod, TPCH_QUERIES[18], q18_reference, 2)
+        check(q18.spill_bytes > 0, "q18 did not spill to host memory")
         del runner
         torch.cuda.empty_cache()
         kernel = phase_kernel(cuda_groupby)

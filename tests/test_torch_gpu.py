@@ -198,3 +198,89 @@ def test_join_queries_on_card_match_cpu(cuda, q):
                 assert a == pytest.approx(b, rel=SUM_REL)
             else:
                 assert a == b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q", [2, 7, 8, 9, 11, 12, 13, 14, 15, 16, 17, 19,
+                               20, 21, 22])
+def test_new_slice_queries_on_card_match_cpu(cuda, q):
+    test_join_queries_on_card_match_cpu(cuda, q)
+
+
+@pytest.mark.gpu
+def test_spilled_join_returns_to_the_card(cuda, monkeypatch):
+    from trino_tpu_torch.config import CONFIG
+    from trino_tpu_torch.exec import executor as ex_mod
+    sql = ("SELECT o_orderpriority, count(*), sum(l_quantity) "
+           "FROM orders JOIN lineitem ON l_orderkey = o_orderkey "
+           "GROUP BY o_orderpriority ORDER BY 1")
+    runner = LocalQueryRunner(device=cuda)
+    whole = runner.execute(sql)
+    chunks = []
+    to_host = ex_mod._to_host
+
+    def spy(b, n):
+        out = to_host(b, n)
+        chunks.append(out)
+        return out
+    monkeypatch.setattr(ex_mod, "_to_host", spy)
+    monkeypatch.setattr(CONFIG, "max_batch_rows", 4096)
+    spilled = runner.execute(sql)
+    assert spilled.spill_bytes > 0 and len(chunks) > 1
+    for c in chunks:
+        for col in c.columns.values():
+            assert col.data.device.type == "cpu" and col.data.is_pinned()
+    assert spilled.rows == whole.rows
+    # the join node's output, read by its parent, is back on the card
+    join = runner.plan_sql(sql)
+    while type(join).__name__ != "JoinNode":
+        join = join.source
+    ex = ex_mod.Executor(runner.catalogs, runner.session, runner.device)
+    out = ex.execute(join)
+    assert not out.spilled
+    assert all(c.data.device.type == "cuda" for c in out.columns.values())
+
+
+@pytest.mark.gpu
+def test_dict_transform_clamps_code_minus_one_on_card(cuda):
+    from trino_tpu_torch.columnar import Batch, Column, StringDictionary
+    from trino_tpu_torch.exec.expr import eval_expr
+    from trino_tpu_torch.rex import Call, Const, InputRef
+    from trino_tpu_torch.types import BOOLEAN, VARCHAR
+    values = np.asarray(["forest green", "red", "green tea"], dtype=object)
+    codes = np.asarray([0, 1, -1, 2, -1, 1, 0, 2], dtype=np.int32)
+    expr = Call("like", (InputRef("s", VARCHAR),
+                         Const("%green%", VARCHAR)), BOOLEAN)
+    rows = []
+    for dev in (cuda, torch.device("cpu")):
+        col = Column(VARCHAR, torch.from_numpy(codes).to(dev), None,
+                     StringDictionary(values))
+        got = eval_expr(expr, Batch({"s": col}, 8))
+        assert got.data.device.type == dev.type
+        rows.append(Batch({"r": got}, 8).to_pylist())
+    assert rows[0] == rows[1]
+    assert rows[0][2] == rows[0][0] == [True]
+
+
+@pytest.mark.gpu
+def test_count_distinct_on_card_matches_cpu(cuda):
+    from trino_tpu_torch.columnar import batch_from_pylist
+    from trino_tpu_torch.ops.groupby import (AggInput, global_aggregate,
+                                             group_aggregate)
+    from trino_tpu_torch.types import parse_type
+    rng = np.random.default_rng(12)
+    n = 200_000
+    keys = [int(x) for x in rng.integers(0, 5_000, n)]
+    vals = [None if x % 17 == 0 else float(x % 40) * 0.5
+            for x in rng.integers(0, 1_000, n)]
+    aggs = [AggInput("count_distinct", "v", output="d"),
+            AggInput("count", "v", output="c")]
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        b = batch_from_pylist({"k": keys, "v": vals},
+                              {"k": parse_type("bigint"),
+                               "v": parse_type("double")}, device=dev)
+        runs.append((group_aggregate(b, ["k"], aggs).to_pylist(),
+                     global_aggregate(b, aggs).to_pylist()))
+    assert runs[0] == runs[1]
+    assert runs[0][1][0][0] == 40

@@ -133,3 +133,58 @@ def test_unported_kind_raises():
     _, pb, keys = _inputs("int", 0)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         group_aggregate(pb, keys, [AggInput("bit_and", "i", None, "x")])
+
+
+DISTINCT_AGGS = [("count_distinct", "v", None), ("count_distinct", "i", "m"),
+                 ("count_distinct", "s", None), ("count_distinct", "b", None),
+                 ("count_distinct", "f", None), ("count_distinct", "f", "m"),
+                 ("count", "f", None)]
+
+
+def _distinct_inputs(name, dead):
+    """The inputs of ``_inputs`` plus ``f``, a double with many repeats,
+    -0.0 beside 0.0, NaNs and NULLs (count(DISTINCT) counts -0.0 and 0.0
+    as one value, and all NaNs as one)."""
+    rng = np.random.default_rng(zlib.crc32(("distinct" + name).encode()))
+    data = _values(rng)
+    data["f"] = _keys("float", rng)
+    data["v"] = [None if x is None else round(x / 500.0) * 0.5
+                 for x in data["v"]]
+    types = {c: _TYPES.get(c, "double") for c in data}
+    keys = []
+    for j, kind in enumerate(CASES[name]):
+        data[f"k{j}"] = _keys(kind, rng)
+        types[f"k{j}"] = _TYPES[kind]
+        keys.append(f"k{j}")
+    tb = tpu_batch(data, {k: tpu_type(t) for k, t in types.items()})
+    pb = batch_from_pylist(data, {k: port_type(t) for k, t in types.items()},
+                           device="cpu")
+    return TpuBatch(tb.columns, N - dead), Batch(pb.columns, N - dead), keys
+
+
+@pytest.mark.parametrize("dead", [0, 37])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_count_distinct_general_path_matches_jax(name, dead):
+    tb, pb, keys = _distinct_inputs(name, dead)
+    want = tpu_group(tb, keys, [TpuAgg(k, c, m, f"a{j}")
+                                for j, (k, c, m) in enumerate(DISTINCT_AGGS)])
+    got = group_aggregate(pb, keys, [
+        AggInput(k, c, m, f"a{j}")
+        for j, (k, c, m) in enumerate(DISTINCT_AGGS)])
+    assert got.names == want.names
+    _same(got.to_pylist(), want.to_pylist())
+
+
+@pytest.mark.parametrize("dead", [0, 37])
+def test_count_distinct_global_path_matches_jax(dead):
+    from trino_tpu.ops.groupby import global_aggregate as tpu_global
+    from trino_tpu_torch.ops.groupby import global_aggregate
+    tb, pb, _ = _distinct_inputs("int", dead)
+    aggs = DISTINCT_AGGS + [("count_star", None, None)]
+    want = tpu_global(tb, [TpuAgg(k, c, m, f"a{j}")
+                           for j, (k, c, m) in enumerate(aggs)])
+    got = global_aggregate(pb, [AggInput(k, c, m, f"a{j}")
+                                for j, (k, c, m) in enumerate(aggs)])
+    assert got.to_pylist() == want.to_pylist()
+    # 0.0 (and -0.0), NaN, 2.5, -2.5, 1e300 and 7.25
+    assert got.to_pylist()[0][4] == 6

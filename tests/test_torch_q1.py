@@ -14,7 +14,6 @@ import torch
 from trino_tpu.benchmarks.tpch_queries import TPCH_QUERIES
 from trino_tpu.runner import LocalQueryRunner as TpuRunner
 from trino_tpu_torch import columnar as port_columnar
-from trino_tpu_torch.config import CONFIG
 from trino_tpu_torch.exec.executor import QueryError
 from trino_tpu_torch.ops import cuda_groupby
 from trino_tpu_torch.runner import LocalQueryRunner
@@ -149,15 +148,14 @@ def test_batch_from_pylist_with_nulls_and_decimals():
 
 
 @pytest.mark.parametrize("sql", [
-    "SELECT p_name FROM part WHERE p_name LIKE '%green%'",
-    # 2 x 7500^2 output rows, over the lowered max_batch_rows below: the
-    # JAX engine would spill the join output to host memory
-    "SELECT count(*) FROM (SELECT o_orderkey % 2 AS k FROM orders) a "
-    "JOIN (SELECT o_orderkey % 2 AS k FROM orders) b ON a.k = b.k",
-    "SELECT approx_distinct(l_orderkey) FROM lineitem",
+    "SELECT n_name, row_number() OVER (ORDER BY n_name) FROM nation",
+    "SELECT CAST(o_orderdate AS TIMESTAMP) FROM orders",
+    "SELECT sum(CAST(l_quantity AS DECIMAL(30,2))) FROM lineitem",
+    "SELECT try(CAST(l_quantity AS DECIMAL(4,2)) / "
+    "CAST(l_discount AS DECIMAL(3,1))) FROM lineitem",
+    "SELECT greatest(n_name, 'B') FROM nation",
 ])
-def test_outside_the_slice_raises_not_yet_ported(sql, monkeypatch):
-    monkeypatch.setattr(CONFIG, "max_batch_rows", 1 << 16)
+def test_outside_the_slice_raises_not_yet_ported(sql):
     with pytest.raises(QueryError, match="not yet ported"):
         LocalQueryRunner(device="cpu").execute(sql)
 

@@ -2,10 +2,8 @@
 (device="cpu") against the JAX engine (Pallas in interpret mode) at
 tpch.tiny.
 
-Each of the 22 queries either equals the JAX engine's rows, in order, or
-raises a QueryError whose message starts "not yet ported"; the queries
-of the ported slice (q1, q3, q4, q5, q6, q10, q18) must answer. The port
-runs first, and the JAX engine only where the port answers. Keys,
+Each of the 22 queries must equal the JAX engine's rows, in order. The
+port runs first, and the JAX engine only where the port answers. Keys,
 integers, strings and dates must match exactly, doubles within rel 1e-9.
 """
 
@@ -19,7 +17,7 @@ from trino_tpu_torch.exec.executor import QueryError
 from trino_tpu_torch.runner import LocalQueryRunner
 
 REL = 1e-9
-MUST_ANSWER = {1, 3, 4, 5, 6, 10, 18}
+MUST_ANSWER = set(range(1, 23))
 
 
 def _same(got, want):

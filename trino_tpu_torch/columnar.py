@@ -193,12 +193,14 @@ class Column:
     def device(self) -> torch.device:
         return self.data.device
 
-    def to(self, device: torch.device) -> "Column":
+    def to(self, device: torch.device,
+           non_blocking: bool = False) -> "Column":
         if self.data.device == device:
             return self
 
         def mv(t):
-            return None if t is None else t.to(device)
+            return None if t is None else t.to(device,
+                                               non_blocking=non_blocking)
         return replace(self, data=mv(self.data), valid=mv(self.valid),
                        data2=mv(self.data2))
 
@@ -304,10 +306,15 @@ def column_from_pylist(values: Sequence, typ: Type) -> Column:
 
 @dataclass(frozen=True)
 class Batch:
-    """A batch of rows: ordered named Columns + row count."""
+    """A batch of rows: ordered named Columns + row count. ``spilled``
+    marks a batch that a join wrote to host memory on purpose (host
+    spill): its lanes are CPU tensors, pinned when they came from a card,
+    and the executor moves it back to its device before any operator
+    reads it."""
 
     columns: Dict[str, Column]
     num_rows: NumRows
+    spilled: bool = False
 
     @property
     def names(self) -> List[str]:
@@ -344,11 +351,13 @@ class Batch:
                              device=self.device)
                 < self.num_rows_device())
 
-    def to(self, device: torch.device) -> "Batch":
+    def to(self, device: torch.device,
+           non_blocking: bool = False) -> "Batch":
         n = self.num_rows
         if isinstance(n, torch.Tensor):
             n = n.to(device)
-        return Batch({k: c.to(device) for k, c in self.columns.items()}, n)
+        return Batch({k: c.to(device, non_blocking)
+                      for k, c in self.columns.items()}, n)
 
     def select_columns(self, names: Sequence[str]) -> "Batch":
         return Batch({n: self.columns[n] for n in names}, self.num_rows)

@@ -7,8 +7,17 @@ caches. An aggregation over a Filter/Project chain evaluates the filter
 into a live mask that the aggregation consumes directly, with no
 compaction (``_try_masked_filter_aggregation``). Joins and semi-joins
 are the sort + binary-search joins of ops/join.py, materialised whole
-(the JAX engine's eager ``join_ops`` path); a join whose output exceeds
-``max_batch_rows`` would spill to host memory there, and raises here.
+(the JAX engine's eager ``join_ops`` path).
+
+Host spill: a join whose output exceeds ``max_batch_rows`` expands its
+probe rows in chunks on the device, filters each chunk by the residual
+there, and copies each chunk's live rows to host memory (pinned on a
+card), as the JAX engine's ``_oversized_join`` does. The spilled batch
+moves back to the device in one place, ``Executor.execute``, where a node
+reads its child's output; a node that returns a batch on another device
+without the spill mark is an error. Operators never compute on host
+lanes (the one exception is ``device_concat``, which keeps a merge that
+includes a spilled part on the host, as the JAX engine does).
 
 Plan nodes, expressions and aggregates outside the ported slice raise
 ``QueryError("not yet ported: ...")``; nothing runs through another
@@ -38,9 +47,9 @@ from ..plan.nodes import (Aggregate, AggregationNode, EnforceSingleRowNode,
 from ..planner.logical import SemiJoinMultiNode
 from ..rex import Call, InputRef, and_all
 from ..session import Session
-from ..types import BIGINT, BOOLEAN, DecimalType, REAL, is_string
+from ..types import BIGINT, BOOLEAN, DOUBLE, DecimalType, REAL, is_string
 from .expr import EvalError, eval_expr, eval_predicate
-from .streamjoin import maybe_stream_join
+from .streamjoin import col_bytes, maybe_stream_join
 
 # position lanes that carry probe / build row numbers through a residual
 # filter, so outer rows whose matches all failed can be null-extended
@@ -89,6 +98,8 @@ class Executor:
         # (probe rows, build rows, output rows) of each join, in the
         # order the joins finish
         self.join_sizes: List[Tuple[int, int, int]] = []
+        # bytes of join output written to host memory (host spill)
+        self.spilled_bytes: int = 0
 
     def execute(self, node: PlanNode) -> Batch:
         cancel = self.session.cancel
@@ -100,17 +111,36 @@ class Executor:
                 "Query exceeded the maximum run time "
                 "(query_max_run_time)", error_name="EXCEEDED_TIME_LIMIT")
         try:
+            out = None
             if isinstance(node, AggregationNode):
-                masked = self._try_masked_filter_aggregation(node)
-                if masked is not None:
-                    return masked
-            method = getattr(self, "_exec_" + type(node).__name__, None)
-            if method is None:
-                raise QueryError(
-                    f"not yet ported: {type(node).__name__}")
-            return method(node)
+                out = self._try_masked_filter_aggregation(node)
+            if out is None:
+                method = getattr(self, "_exec_" + type(node).__name__,
+                                 None)
+                if method is None:
+                    raise QueryError(
+                        f"not yet ported: {type(node).__name__}")
+                out = method(node)
         except (EvalError, NotImplementedError) as e:
             raise QueryError(str(e)) from e
+        if out.spilled:
+            # the one place a spilled batch returns to the device: the
+            # parent reads its child's output here, from pinned memory
+            return out.to(self.device, non_blocking=True)
+        self._check_device(out, type(node).__name__)
+        return out
+
+    def _check_device(self, b: Batch, what: str) -> None:
+        dev = self.device
+        for name, c in b.columns.items():
+            for t in (c.data, c.valid, c.data2):
+                if t is not None and (t.device.type != dev.type or (
+                        dev.index is not None
+                        and t.device.index != dev.index)):
+                    raise QueryError(
+                        f"internal error: {what} returned column {name} "
+                        f"on {t.device}, not on {dev}, without the spill "
+                        "mark")
 
     # ------------------------------------------------------------------
     # masked (selection-vector) filter -> aggregation fusion: filters
@@ -250,11 +280,15 @@ class Executor:
             eff = (torch.where(left.row_valid(), count.clamp(min=1), 0)
                    if outer else count)
             total = int(eff.sum())
-            self._check_batch_rows(total)
-            self._reserve(total, width, "join output")
-            out = join_ops.expand_join(left, right, start, count, order,
-                                       capacity_for(total),
-                                       "left" if outer else "inner")
+            if total > CONFIG.max_batch_rows:
+                out = self._oversized_join(left, right, start, count, eff,
+                                           order, total, width,
+                                           "left" if outer else "inner")
+            else:
+                self._reserve(total, width, "join output")
+                out = join_ops.expand_join(left, right, start, count,
+                                           order, capacity_for(total),
+                                           "left" if outer else "inner")
             if jt == "full":
                 out = self._append_right_unmatched(out, left, right, pkeys,
                                                    bkeys)
@@ -269,20 +303,15 @@ class Executor:
         start, count, order = join_ops.match_counts(probe, build, pkeys,
                                                     bkeys)
         total = int(count.sum())
-        if jt == "inner":
-            self._check_batch_rows(total)
+        if total > CONFIG.max_batch_rows and jt == "inner":
+            return self._oversized_join(probe, build, start, count, count,
+                                        order, total, width, "inner",
+                                        residual=filt)
         self._reserve(total, width, "join candidates")
         cand = join_ops.expand_join(probe, build, start, count, order,
                                     capacity_for(total), "inner")
         out = compact.filter_batch(cand, eval_predicate(filt, cand))
         return self._repair_outer(out, left, right, jt)
-
-    @staticmethod
-    def _check_batch_rows(total: int) -> None:
-        if total > CONFIG.max_batch_rows:
-            raise QueryError(
-                "not yet ported: join output over max_batch_rows (host "
-                f"spill): {total} rows > {CONFIG.max_batch_rows}")
 
     def _reserve(self, rows: int, n_lanes: int, what: str) -> None:
         """Check an allocation against query_max_memory_per_node before
@@ -294,6 +323,57 @@ class Executor:
         except MemoryLimitExceeded as e:
             raise QueryError(str(e), error_name="EXCEEDED_LOCAL_MEMORY_LIMIT"
                              ) from e
+
+    def _oversized_join(self, probe: Batch, build: Batch, start, count,
+                        eff, order, total: int, width: int, jt: str,
+                        residual=None) -> Batch:
+        """Join whose output exceeds the per-batch device budget: expand
+        probe-row chunks of at most ``max_batch_rows`` output rows on the
+        device, filter each by the residual there, and copy each chunk's
+        live rows to host memory (the spiller role of the reference's
+        HashBuilderOperator; host RAM is the first rung of the
+        device -> host -> disk ladder). With spill disabled the memory
+        guard decides first."""
+        if not bool(self.session.get("spill_enabled")):
+            self._reserve(total, width, "join output (spill disabled)")
+        cum = np.cumsum(eff.cpu().numpy())
+        budget = CONFIG.max_batch_rows
+        n_live = probe.num_rows_host()
+        dev = probe.device
+        chunks: List[Batch] = []
+        lo = consumed = 0
+        while lo < probe.capacity and consumed < total:
+            hi = max(int(np.searchsorted(cum, consumed + budget, "right")),
+                     lo + 1)
+            chunk_rows = int(cum[hi - 1] - consumed)
+            if chunk_rows == 0:
+                lo = hi
+                continue
+            sel = torch.arange(lo, hi, dtype=torch.int64, device=dev)
+            # gathered rows are live iff their position was in the live
+            # prefix, so the chunk's liveness is again a prefix
+            sub = probe.gather(sel, max(min(n_live, hi) - lo, 0))
+            out = join_ops.expand_join(sub, build, start[sel], count[sel],
+                                       order, capacity_for(chunk_rows), jt)
+            consumed += chunk_rows
+            lo = hi
+            if residual is not None:
+                # only the survivors leave the device
+                out = compact.filter_batch(out,
+                                           eval_predicate(residual, out))
+                chunk_rows = out.num_rows_host()
+                if chunk_rows == 0:
+                    continue
+            spilled = _to_host(out, chunk_rows)
+            self.spilled_bytes += sum(col_bytes(c)
+                                      for c in spilled.columns.values())
+            chunks.append(spilled)
+        if not chunks:
+            empty = _to_host(join_ops.expand_join(
+                probe, build, start, torch.zeros_like(count), order, 8, jt),
+                8)
+            return Batch(empty.columns, 0, spilled=True)
+        return device_concat(chunks)
 
     def _cross_join(self, left: Batch, right: Batch, filt,
                     jt: str = "inner") -> Batch:
@@ -447,8 +527,10 @@ def _sort_keys(keys) -> List[sort_ops.SortKey]:
 def _aggregate(node: AggregationNode, src: Batch,
                live: Optional[torch.Tensor]) -> Batch:
     """Lower the logical aggregates, aggregate (grouped or global), then
-    apply the post functions (avg = sum / count)."""
-    phys, post = _lower_aggregates(node.aggregates)
+    apply the post functions (avg = sum / count, variance, ...)."""
+    phys, post, extra = _lower_aggregates(node.aggregates, src)
+    if extra:
+        src = Batch({**src.columns, **extra}, src.num_rows)
     if node.group_keys:
         out = group_aggregate(src, list(node.group_keys), phys, live=live)
     elif phys:
@@ -470,17 +552,24 @@ def _single_row(device: torch.device) -> Batch:
         BIGINT, torch.zeros(8, dtype=torch.int64, device=device))}, 1)
 
 
-def _lower_aggregates(aggregates: Dict[str, Aggregate]):
-    """Map logical aggregates onto the kernel-supported kinds, returning
-    (phys_aggs, post_fns). avg becomes sum + count, as the reference's
-    LongAndDoubleState."""
+def _lower_aggregates(aggregates: Dict[str, Aggregate], src: Batch):
+    """Map logical aggregates onto the kinds ops/groupby.py computes
+    (sum/count/count_star/min/max/any_value/count_distinct), returning
+    (phys_aggs, post_fns, extra_columns). The decomposition mirrors the
+    reference's accumulator states: avg = LongAndDoubleState, variance =
+    CentralMomentsState."""
     phys: List[AggInput] = []
     post = {}
+    extra: Dict[str, Column] = {}
     for sym, a in aggregates.items():
         kind = a.kind
-        if a.distinct:
+        if kind == "count" and a.distinct or kind == "approx_distinct":
+            # exact, as the JAX engine computes approx_distinct
+            phys.append(AggInput("count_distinct", a.argument, a.mask,
+                                 sym))
+        elif a.distinct:
             raise NotImplementedError(f"not yet ported: {kind}(DISTINCT)")
-        if kind in ("sum", "min", "max", "count", "count_star"):
+        elif kind in ("sum", "min", "max", "count", "count_star"):
             phys.append(AggInput(kind, a.argument, a.mask, sym))
         elif kind in ("any_value", "arbitrary"):
             phys.append(AggInput("any_value", a.argument, a.mask, sym))
@@ -489,9 +578,83 @@ def _lower_aggregates(aggregates: Dict[str, Aggregate]):
             phys.append(AggInput("sum", a.argument, a.mask, ssym))
             phys.append(AggInput("count", a.argument, a.mask, csym))
             post[sym] = _avg_post(ssym, csym, a.type)
+        elif kind == "count_if":
+            msym = sym + "$mask"
+            m = _true(src.column(a.argument))
+            if a.mask is not None:
+                m = m & _true(src.column(a.mask))
+            extra[msym] = Column(BOOLEAN, m, None)
+            phys.append(AggInput("count_star", None, msym, sym))
+        elif kind in ("bool_and", "every", "bool_or"):
+            op = "min" if kind in ("bool_and", "every") else "max"
+            phys.append(AggInput(op, a.argument, a.mask, sym))
+        elif kind in ("stddev", "stddev_samp", "stddev_pop", "variance",
+                      "var_samp", "var_pop"):
+            bsym, d, bvalid = _stat_lane(src, a.argument, extra, sym + "$f")
+            sqsym = sym + "$sq"
+            extra[sqsym] = Column(DOUBLE, d * d, bvalid)
+            ssym, csym, s2sym = sym + "$s", sym + "$c", sym + "$s2"
+            phys.append(AggInput("sum", bsym, a.mask, ssym))
+            phys.append(AggInput("count", bsym, a.mask, csym))
+            phys.append(AggInput("sum", sqsym, a.mask, s2sym))
+            post[sym] = _variance_post(ssym, csym, s2sym,
+                                       kind.endswith("_pop"),
+                                       kind.startswith("stddev"))
+        elif kind == "geometric_mean":
+            lsym = sym + "$ln"
+            _, d, bvalid = _stat_lane(src, a.argument, extra, sym + "$f")
+            extra[lsym] = Column(DOUBLE, torch.log(d), bvalid)
+            ssym, csym = sym + "$s", sym + "$c"
+            phys.append(AggInput("sum", lsym, a.mask, ssym))
+            phys.append(AggInput("count", lsym, a.mask, csym))
+            post[sym] = _geomean_post(ssym, csym)
         else:
             raise NotImplementedError(f"not yet ported: aggregate {kind}")
-    return phys, post
+    return phys, post, extra
+
+
+def _true(c: Column) -> torch.Tensor:
+    m = c.data.to(torch.bool)
+    return m if c.valid is None else m & c.valid
+
+
+def _stat_lane(src: Batch, name: str, extra: Dict[str, Column], tag: str):
+    """(symbol, f64 lane, validity) of a numeric input of the statistical
+    aggregates; a short decimal is unscaled into a new f64 lane."""
+    col = src.column(name)
+    d = col.data.to(torch.float64)
+    if isinstance(col.type, DecimalType):
+        if col.data2 is not None:
+            raise NotImplementedError(
+                f"not yet ported: statistical aggregates over {col.type}")
+        d = d / torch.full((), 10.0 ** col.type.scale,
+                           dtype=torch.float64, device=d.device)
+        extra[tag] = Column(DOUBLE, d, col.valid)
+        return tag, d, col.valid
+    return name, d, col.valid
+
+
+def _f64(out: Batch, sym: str) -> torch.Tensor:
+    return out.column(sym).data.to(torch.float64)
+
+
+def _variance_post(ssym, csym, s2sym, pop: bool, sqrt: bool):
+    def fn(out: Batch) -> Column:
+        s, n, s2 = _f64(out, ssym), _f64(out, csym), _f64(out, s2sym)
+        m2 = s2 - s * s / torch.clamp(n, min=1.0)
+        v = torch.clamp(m2 / torch.clamp(n if pop else n - 1.0, min=1.0),
+                        min=0.0)
+        return Column(DOUBLE, torch.sqrt(v) if sqrt else v,
+                      n > (0.0 if pop else 1.0))
+    return fn
+
+
+def _geomean_post(ssym, csym):
+    def fn(out: Batch) -> Column:
+        s, n = _f64(out, ssym), _f64(out, csym)
+        return Column(DOUBLE, torch.exp(s / torch.clamp(n, min=1.0)),
+                      n > 0)
+    return fn
 
 
 def _avg_post(ssym, csym, rtype):
@@ -510,9 +673,24 @@ def _avg_post(ssym, csym, rtype):
 
 def device_concat(parts: Sequence[Batch]) -> Batch:
     """Concatenate the live rows of batches on one device, merging string
-    dictionaries, into the capacity bucket of the total."""
+    dictionaries, into the capacity bucket of the total. When a part was
+    spilled to host memory and the total is over ``max_batch_rows``, the
+    merge stays in host memory (the result is spilled, pinned when its
+    parts are); a spilled part of a smaller merge moves to the device of
+    the others first."""
     counts = [p.num_rows_host() for p in parts]
     total = sum(counts)
+    spilled = pin = False
+    if any(p.spilled for p in parts):
+        on_device = [p.device for p in parts if not p.spilled]
+        if total > CONFIG.max_batch_rows or not on_device:
+            parts = [p if p.spilled else _to_host(p, n)
+                     for p, n in zip(parts, counts)]
+            spilled = True
+            pin = any(next(iter(p.columns.values())).data.is_pinned()
+                      for p in parts)
+        else:
+            parts = [p.to(on_device[0]) if p.spilled else p for p in parts]
     cap = capacity_for(max(total, 1), minimum=8)
     cols: Dict[str, Column] = {}
     for name in parts[0].names:
@@ -531,25 +709,46 @@ def device_concat(parts: Sequence[Batch]) -> Batch:
         valid = None
         if any(c.valid is not None for c in cs):
             valid = _cat_into([c.valid_mask()[:n]
-                               for c, n in zip(cs, counts)], cap)
+                               for c, n in zip(cs, counts)], cap, pin)
         data2 = None
         if any(c.data2 is not None for c in cs):
             if not all(c.data2 is not None for c in cs):
                 raise NotImplementedError(
                     "not yet ported: concat of mixed high lanes")
             data2 = _cat_into([c.data2[:n] for c, n in zip(cs, counts)],
-                              cap)
-        cols[name] = Column(first.type, _cat_into(datas, cap), valid, dic,
-                            data2)
-    return Batch(cols, total)
+                              cap, pin)
+        cols[name] = Column(first.type, _cat_into(datas, cap, pin), valid,
+                            dic, data2)
+    return Batch(cols, total, spilled=spilled)
 
 
-def _cat_into(pieces: Sequence[torch.Tensor], cap: int) -> torch.Tensor:
+def _cat_into(pieces: Sequence[torch.Tensor], cap: int,
+              pin: bool = False) -> torch.Tensor:
     """Pieces copied one after another into a zeroed lane of ``cap``
     rows (one allocation, however many pieces)."""
-    out = torch.zeros(cap, dtype=pieces[0].dtype, device=pieces[0].device)
+    out = torch.zeros(cap, dtype=pieces[0].dtype, device=pieces[0].device,
+                      pin_memory=pin)
     off = 0
     for p in pieces:
         out[off:off + p.shape[0]].copy_(p)
         off += p.shape[0]
     return out
+
+
+# ---- host spill -----------------------------------------------------------
+
+def _to_host(b: Batch, n: int) -> Batch:
+    """The live prefix of ``b`` copied to host memory (the spill write),
+    into pinned tensors when it comes from a card so that the way back is
+    an asynchronous copy."""
+    pin = b.device.type == "cuda"
+
+    def host(t):
+        if t is None:
+            return None
+        out = torch.empty(n, dtype=t.dtype, pin_memory=pin)
+        return out.copy_(t[:n])
+    cols = {s: Column(c.type, host(c.data), host(c.valid), c.dictionary,
+                      host(c.data2))
+            for s, c in b.columns.items()}
+    return Batch(cols, n, spilled=True)

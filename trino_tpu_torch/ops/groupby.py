@@ -14,7 +14,9 @@ Counterpart of ``trino_tpu/ops/groupby.py``, with its two paths:
   engine. Float sums reduce each group's run of sorted rows in a fixed
   order (``torch.segment_reduce``), never by floating-point atomics, so
   two runs give bit-identical sums; integer sums, counts, min and max
-  may use any scatter.
+  may use any scatter. count(DISTINCT) re-sorts the rows by (keys,
+  value) and counts the value changes inside each group (``_resort``);
+  both sorts lead with the key lanes, so group ids stay aligned.
 
 Aggregate null semantics as in SQL: sum/min/max over zero non-null
 inputs are NULL; count is 0.
@@ -44,6 +46,7 @@ _I64 = torch.int64
 class AggInput:
     """One aggregate over one input lane (or none, for count(*))."""
     kind: str          # sum | count | count_star | min | max | any_value
+    #                    | count_distinct
     input: Optional[str] = None   # column name; None for count_star
     mask: Optional[str] = None    # FILTER / mask column (boolean), optional
     output: str = "agg"
@@ -53,6 +56,8 @@ class AggInput:
 FAST_DOMAIN_LIMIT = 64
 
 _FAST_KINDS = {"sum", "count", "count_star", "min", "max", "any_value"}
+# kinds of the general (lexsort) path and of global_aggregate
+_GENERAL_KINDS = _FAST_KINDS | {"count_distinct"}
 
 
 def _sum_type(t: Type) -> Type:
@@ -100,7 +105,7 @@ def group_aggregate(batch: Batch, key_names: Sequence[str],
     if out is not None:
         return out
     for agg in aggs:
-        if agg.kind not in _FAST_KINDS:
+        if agg.kind not in _GENERAL_KINDS:
             raise NotImplementedError(
                 f"not yet ported: aggregate {agg.kind} in the general "
                 "GROUP BY path")
@@ -112,10 +117,8 @@ def group_aggregate(batch: Batch, key_names: Sequence[str],
     order = lexsort([to_signed_order(x) for x in lanes])
     live_s = live[order]
     # key-change boundaries over the sorted live prefix
-    changed = torch.zeros(cap, dtype=torch.bool, device=dev)
-    for lane in lanes[1:]:
-        srt = lane[order]
-        changed |= srt != torch.roll(srt, 1)
+    changed = _changes(lanes[1:], order,
+                       torch.zeros(cap, dtype=torch.bool, device=dev))
     changed[0] = True
     boundary = changed & live_s
     gid = (torch.cumsum(boundary, 0) - 1).clamp(0, gcap - 1)
@@ -128,7 +131,7 @@ def group_aggregate(batch: Batch, key_names: Sequence[str],
         firsts = torch.cat([firsts, torch.zeros(gcap - cap, dtype=_I64,
                                                 device=dev)])
     grp_rows = take_clamped(order, firsts)
-    seg = _Segments(order, gid, live_s, gcap)
+    seg = _Segments(order, gid, live_s, gcap, lanes, live)
 
     out_cols: Dict[str, Column] = {
         name: batch.column(name).gather(grp_rows) for name in key_names}
@@ -163,11 +166,14 @@ def _key_lanes(batch: Batch, key_names: Sequence[str],
 @dataclass
 class _Segments:
     """The sorted row order and each sorted row's group id (nondecreasing,
-    clamped into [0, gcap))."""
+    clamped into [0, gcap)); the key lanes and the unsorted liveness, for
+    the aggregates that re-sort."""
     order: torch.Tensor
     gid: torch.Tensor
     live_s: torch.Tensor
     gcap: int
+    key_lanes: List[torch.Tensor]
+    live: torch.Tensor
 
     def count(self, mask: torch.Tensor) -> torch.Tensor:
         out = torch.zeros(self.gcap, dtype=_I64, device=mask.device)
@@ -199,6 +205,8 @@ def _segment_agg(batch: Batch, agg: AggInput, seg: _Segments) -> Column:
         return Column(BIGINT, seg.count(mask), None)
 
     col = batch.column(agg.input)
+    if agg.kind == "count_distinct":
+        return _count_distinct(batch, agg, col, seg)
     valid = mask if col.valid is None else mask & col.valid[order]
     nvalid = seg.count(valid)
     if agg.kind == "count":
@@ -233,6 +241,61 @@ def _segment_agg(batch: Batch, agg: AggInput, seg: _Segments) -> Column:
     first = seg.reduce(torch.where(valid, pos, cap), "amin", cap)
     return replace(col.gather(take_clamped(order, first)),
                    valid=group_valid)
+
+
+def _distinct_lanes(batch: Batch, agg: AggInput, col: Column,
+                    live: torch.Tensor):
+    """(valid, tie lanes) of count(DISTINCT): the rows that count (live,
+    non-NULL, passing the mask), then a lane pushing the others last and
+    the value's equality lanes (zero where not counted)."""
+    if col.data2 is not None:
+        raise NotImplementedError(
+            f"not yet ported: count(DISTINCT) over {col.type} (Int128)")
+    valid = _agg_row_mask(batch, agg, live)
+    if col.valid is not None:
+        valid = valid & col.valid
+    vlanes = [torch.where(valid, u, 0) for u in equality_lanes(col.data)]
+    return valid, [(~valid).to(_I64)] + vlanes
+
+
+def _changes(lanes: Sequence[torch.Tensor], order: torch.Tensor,
+             init: torch.Tensor) -> torch.Tensor:
+    """``init`` or-ed with, per sorted row, whether any lane differs from
+    the row before it."""
+    changed = init
+    for lane in lanes:
+        s = lane[order]
+        changed = changed | (s != torch.roll(s, 1))
+    return changed
+
+
+def _resort(key_lanes, tie_lanes, live: torch.Tensor, gcap: int):
+    """Re-sort rows by (key lanes, tie lanes) and recompute group ids.
+    Group ids stay aligned with the primary sort of group_aggregate
+    because both orders sort by the key lanes first. Returns (order2,
+    gid2, key_changed, is_first)."""
+    cap = live.shape[0]
+    full = list(key_lanes) + list(tie_lanes)
+    order2 = lexsort([to_signed_order(x) for x in full])
+    first = torch.arange(cap, device=live.device) == 0
+    changed = _changes(key_lanes[1:], order2,
+                       torch.zeros(cap, dtype=torch.bool,
+                                   device=live.device))
+    boundary2 = (changed | first) & live[order2]
+    gid2 = (torch.cumsum(boundary2, 0) - 1).clamp(0, gcap - 1)
+    return order2, gid2, changed, first
+
+
+def _count_distinct(batch: Batch, agg: AggInput, col: Column,
+                    seg: _Segments) -> Column:
+    """Exact count(DISTINCT) per group: re-sort by (keys, value), then
+    count the rows that start a new value inside their group."""
+    valid_u, tie = _distinct_lanes(batch, agg, col, seg.live)
+    order2, gid2, changed_k, first = _resort(seg.key_lanes, tie, seg.live,
+                                             seg.gcap)
+    newval = _changes(tie, order2, changed_k | first) & valid_u[order2]
+    data = torch.zeros(seg.gcap, dtype=_I64, device=newval.device)
+    return Column(BIGINT, data.index_add_(0, gid2, newval.to(_I64)), None)
 
 
 def _packed_group_aggregate(batch: Batch, key_names: Sequence[str],
@@ -447,7 +510,21 @@ def global_aggregate(batch: Batch, aggs: Sequence[AggInput],
     live = batch.row_valid() if live is None else live
     out: Dict[str, Column] = {}
     for agg in aggs:
-        if agg.kind not in _FAST_KINDS:
+        if agg.kind not in _GENERAL_KINDS:
             raise NotImplementedError(f"not yet ported: {agg.kind}")
-        out[agg.output] = _masked_agg(batch, agg, [live], 1)
+        if agg.kind == "count_distinct":
+            out[agg.output] = _global_count_distinct(batch, agg, live)
+        else:
+            out[agg.output] = _masked_agg(batch, agg, [live], 1)
     return Batch(out, 1)
+
+
+def _global_count_distinct(batch: Batch, agg: AggInput,
+                           live: torch.Tensor) -> Column:
+    """count(DISTINCT) without GROUP BY: sort by value, count the
+    changes among the counted rows."""
+    valid, tie = _distinct_lanes(batch, agg, batch.column(agg.input), live)
+    order = lexsort([to_signed_order(x) for x in tie])
+    first = torch.arange(batch.capacity, device=live.device) == 0
+    newval = _changes(tie[1:], order, first) & valid[order]
+    return Column(BIGINT, newval.sum(dtype=_I64).reshape(1), None)

@@ -1,14 +1,18 @@
 """Where a TPC-H query's time goes in the PyTorch engine, on one CUDA card.
 
     python3 -m trino_tpu_torch.profile_q1 [--query 1] [--schema sf10]
-                                          [--reps 3]
+                                          [--reps 3] [--max-batch-rows N]
 
 Prints one JSON object: the card, cold and warm wall times of the query,
 the per-layer split of ``--reps`` more runs (the scan of each table,
 joins, aggregations, expressions, sort/TopN: the card is synchronised
-around every plan node, and each node's own time goes to its layer), the
-device-busy share from torch.profiler, and the operators with the most
-device time.
+around every plan node, and each node's own time goes to its layer; a
+spilled join's copies to host memory and back count to the join), the
+running peak of device memory after each plan node of the first of those
+runs, the bytes spilled, the device-busy share from torch.profiler, and
+the operators with the most device time. ``--max-batch-rows`` sets the
+largest join output kept on the card as one batch (beyond it the join
+spills to host memory), to compare a query with and without the spill.
 """
 
 from __future__ import annotations
@@ -17,10 +21,11 @@ import argparse
 import json
 import subprocess
 import time
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import torch
 
+from .config import CONFIG
 from .exec.executor import Executor
 
 # plan node -> layer; Filter and Project nodes are "expressions", and a
@@ -48,6 +53,8 @@ class TimedExecutor(Executor):
     def __init__(self, *args):
         super().__init__(*args)
         self.layers: Dict[str, float] = {}
+        # (plan node, device memory peak in bytes so far) as nodes finish
+        self.peaks: List[Tuple[str, int]] = []
         self._children_s = 0.0
 
     def execute(self, node):
@@ -63,6 +70,8 @@ class TimedExecutor(Executor):
         self.layers[layer] = (self.layers.get(layer, 0.0) + total
                               - self._children_s)
         self._children_s = outer + total
+        self.peaks.append((type(node).__name__,
+                           torch.cuda.max_memory_allocated()))
         return out
 
 
@@ -75,7 +84,10 @@ def main() -> None:
     ap.add_argument("--query", type=int, default=1)
     ap.add_argument("--schema", default="sf10")
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--max-batch-rows", type=int, default=None)
     args = ap.parse_args()
+    if args.max_batch_rows is not None:
+        CONFIG.max_batch_rows = args.max_batch_rows
     sql = TPCH_QUERIES[args.query]
 
     runner = LocalQueryRunner(Session(catalog="tpch", schema=args.schema))
@@ -83,11 +95,14 @@ def main() -> None:
     warm = [_sync_wall(lambda: runner.execute(sql))
             for _ in range(args.reps)]
     plan = runner.plan_sql(sql)
-    layers = []
+    layers, peaks, spilled = [], None, []
     for _ in range(args.reps):
         ex = TimedExecutor(runner.catalogs, runner.session, runner.device)
+        torch.cuda.reset_peak_memory_stats()
         ex.execute(plan)
         layers.append(ex.layers)
+        peaks = peaks or ex.peaks
+        spilled.append(ex.spilled_bytes)
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -112,7 +127,9 @@ def main() -> None:
         timeout=60).stdout.strip()
     print(json.dumps({
         "card": card, "query": args.query, "schema": args.schema,
+        "max_batch_rows": CONFIG.max_batch_rows,
         "cold_s": cold, "warm_s": warm, "layers_s": layers,
+        "node_peak_bytes": peaks, "spill_bytes": spilled,
         "profiled_wall_s": profiled,
         "device_busy_s": busy_s, "kernel_launches": sum(
             e.count for e in kernels),

@@ -36,6 +36,8 @@ class QueryResult:
     wall_s: float = 0.0
     # (probe rows, build rows, output rows) of each join the query ran
     join_sizes: List[Tuple[int, int, int]] = field(default_factory=list)
+    # bytes of join output the query wrote to host memory (host spill)
+    spill_bytes: int = 0
 
 
 class LocalQueryRunner:
@@ -92,4 +94,5 @@ class LocalQueryRunner:
         schema = batch.schema()
         return QueryResult(list(plan.names),
                            [schema[s] for s in plan.symbols],
-                           batch.to_pylist(), join_sizes=ex.join_sizes)
+                           batch.to_pylist(), join_sizes=ex.join_sizes,
+                           spill_bytes=ex.spilled_bytes)
