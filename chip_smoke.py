@@ -3,16 +3,21 @@
     python3 chip_smoke.py
 
 Builds every CUDA kernel from trino_tpu_torch/csrc, drives TPC-H q1, q3,
-q6, q9, q12, q14 and q18 at tpch.sf10 through
+q6, q9, q12, q14 and q18 at tpch.sf10 and TPC-DS q64, q47, q36, q38 and
+q78 at tpcds.sf10 through
 ``trino_tpu_torch.runner.LocalQueryRunner().execute``, holds each kernel
-against its plain PyTorch version, and checks each query's rows against an
-independent numpy reference over the lanes the card generates (themselves
-held bit-identical to the numpy generators) and the tables the host
-generates. q3 runs four times; its rows must be bit-identical every time.
-q18 must spill its join outputs to host memory. Each phase prints one
-JSON line; the line before the last lists the kernels, the last line is
-the result. Any failed phase exits non-zero without printing a result,
-as does a machine without CUDA.
+against its plain PyTorch version, and checks each TPC-H query's rows
+against an independent numpy reference over the lanes the card generates
+(themselves held bit-identical to the numpy generators) and the tables the
+host generates. q3 runs four times; its rows must be bit-identical every
+time. q18 must spill its join outputs to host memory. Each TPC-DS query's
+warm runs must return its cold run's rows; at tpcds.sf1 its rows on the
+card must equal the engine's own rows on the CPU; q38 at sf10 must equal
+a numpy count over the connector's lanes, and q64 must return rows (the
+relaxed variant of tests/test_tpcds.py where the spec text is empty).
+Each phase prints one JSON line; the line before the last lists the
+kernels, the last line is the result. Any failed phase exits non-zero
+without printing a result, as does a machine without CUDA.
 """
 
 from __future__ import annotations
@@ -43,6 +48,20 @@ Q12_L_COLS = ["l_orderkey", "l_shipmode", "l_commitdate", "l_receiptdate",
 Q14_L_COLS = ["l_partkey", "l_extendedprice", "l_discount", "l_shipdate"]
 Q18_O_COLS = ["o_orderkey", "o_custkey", "o_orderdate", "o_totalprice"]
 WARM_REPS = 3
+DS_SCHEMA = "sf10"
+DS_CHECK_SCHEMA = "sf1"     # card rows against the engine's CPU rows
+DS_FACT_TABLES = {"store_sales", "store_returns", "catalog_sales",
+                  "catalog_returns", "web_sales", "web_returns",
+                  "inventory"}
+# the relaxed q64 of tests/test_tpcds.py: its five edits, as text
+Q64_RELAXED_EDITS = [
+    ("AND i_current_price BETWEEN 64 AND 74", ""),
+    ("AND i_current_price BETWEEN 65 AND 79", ""),
+    ("AND i_color IN ('purple', 'burlywood', 'indian', 'spring',\n"
+     "                    'floral', 'medium')", ""),
+    ("AND cs1.syear = 1999", ""),
+    ("AND cs2.syear = 2000", ""),
+]
 
 
 class PhaseFailed(Exception):
@@ -674,6 +693,179 @@ def phase_kernel(cg):
                 library_ms=library_ms)
 
 
+def ds_rows_match(got, want) -> bool:
+    """Integers, strings, dates and decimals exact; doubles within rel
+    1e-9; NaN equals NaN."""
+    if len(got) != len(want):
+        return False
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            if isinstance(b, float) and b != b:
+                if not (isinstance(a, float) and a != a):
+                    return False
+            elif isinstance(b, float):
+                if not isinstance(a, float) or abs(a - b) > SUM_REL * abs(b):
+                    return False
+            elif a != b:
+                return False
+    return True
+
+
+def ds_fact_rows(runner, sql, tpcds_mod) -> int:
+    """Fact-table rows the query's scans generate (each scan counts)."""
+    sf = tpcds_mod.SCHEMAS[DS_SCHEMA]
+    total, stack = 0, [runner.plan_sql(sql)]
+    while stack:
+        node = stack.pop()
+        if type(node).__name__ == "TableScanNode" and \
+                node.handle.table in DS_FACT_TABLES:
+            total += tpcds_mod.table_rows(node.handle.table, sf)
+        src = node.sources
+        stack.extend(src() if callable(src) else src)
+    return total
+
+
+def ds_lanes(conn, schema: str, table: str, cols):
+    """A whole table as the connector generates it, split by split, on
+    the host: {column: (values, validity)}; strings decoded to objects."""
+    from trino_tpu_torch.catalog import TableHandle
+    parts = {c: ([], []) for c in cols}
+    for split in conn.get_splits(TableHandle("tpcds", schema, table), 1):
+        b = conn.read_split(split, cols)
+        n = b.num_rows_host()
+        for c in cols:
+            col = b.column(c)
+            data = col.data[:n].numpy()
+            if col.dictionary is not None:
+                data = col.dictionary.values[data]
+            parts[c][0].append(data)
+            parts[c][1].append(np.ones(n, bool) if col.valid is None
+                               else col.valid[:n].numpy())
+    return {c: (np.concatenate(v), np.concatenate(m))
+            for c, (v, m) in parts.items()}
+
+
+def q38_reference(tpcds_mod, schema: str) -> int:
+    """q38 with numpy alone over the connector's lanes: each channel's
+    distinct (c_last_name, c_first_name, d_date) triples sold in months
+    1200-1211 of d_month_seq, intersected across the three channels."""
+    conn = tpcds_mod.TpcdsConnector(device="cpu")
+    dd = ds_lanes(conn, schema, "date_dim",
+                  ["d_date_sk", "d_date", "d_month_seq"])
+    cu = ds_lanes(conn, schema, "customer",
+                  ["c_customer_sk", "c_last_name", "c_first_name"])
+    sk0 = int(dd["d_date_sk"][0][0])
+    check(bool(np.all(np.diff(dd["d_date_sk"][0]) == 1)),
+          "q38 reference: d_date_sk not dense")
+    check(bool(np.all(cu["c_customer_sk"][0]
+                      == np.arange(1, len(cu["c_customer_sk"][0]) + 1))),
+          "q38 reference: c_customer_sk not dense")
+    in_months = (dd["d_month_seq"][0] >= 1200) & (dd["d_month_seq"][0]
+                                                  <= 1211)
+    last = np.unique(cu["c_last_name"][0], return_inverse=True)[1]
+    first_vals, first = np.unique(cu["c_first_name"][0],
+                                  return_inverse=True)
+    date = dd["d_date"][0].astype(np.int64)
+    span = int(date.max() - date.min()) + 1
+    keys = []
+    for table, dcol, ccol in (
+            ("store_sales", "ss_sold_date_sk", "ss_customer_sk"),
+            ("catalog_sales", "cs_sold_date_sk", "cs_bill_customer_sk"),
+            ("web_sales", "ws_sold_date_sk", "ws_bill_customer_sk")):
+        lanes = ds_lanes(conn, schema, table, [dcol, ccol])
+        (dsk, dok), (csk, cok) = lanes[dcol], lanes[ccol]
+        di = np.clip(dsk - sk0, 0, len(date) - 1)
+        ci = np.clip(csk - 1, 0, len(last) - 1)
+        ok = dok & cok & in_months[di]
+        key = ((last[ci] * len(first_vals) + first[ci]) * span
+               + (date[di] - date.min()))
+        keys.append(np.unique(key[ok]))
+    return int(len(np.intersect1d(np.intersect1d(keys[0], keys[1]),
+                                  keys[2])))
+
+
+def phase_ds(name, sql, runners, cuda_groupby, tpcds_mod, int128_mod,
+             reference=None, relaxed=None):
+    """One TPC-DS query at tpcds.sf10: cold and warm walls (median of 2),
+    rows/s over the fact rows its scans generate, peak memory, spill
+    bytes, join sizes, grouped_sums launches and Int128 divisions; warm
+    rows equal cold rows, and at tpcds.sf1 the card's rows equal the
+    engine's rows on the CPU."""
+    card, card_check, cpu_check = runners
+    int128_mod.DIVMOD_CALLS = 0
+    cold, warm, cold_s, warm_s, peak, launches = run_timed(
+        card, sql, cuda_groupby, 2)
+    divmods = int128_mod.DIVMOD_CALLS // 3
+    torch.cuda.empty_cache()
+    fact = ds_fact_rows(card, sql, tpcds_mod)
+    same = all(w.rows == cold.rows for w in warm)
+    t0 = time.perf_counter()
+    on_card = card_check.execute(sql).rows
+    torch.cuda.synchronize()
+    check_card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = cpu_check.execute(sql).rows
+    check_cpu_s = time.perf_counter() - t0
+    sf1_ok = ds_rows_match(on_card, on_cpu)
+    extra = {}
+    if reference is not None:
+        want = reference(tpcds_mod, DS_SCHEMA)
+        extra.update(reference=want,
+                     matches_numpy_reference=cold.rows == [[want]])
+    if relaxed is not None and not cold.rows:
+        t0 = time.perf_counter()
+        rel = card.execute(relaxed)
+        torch.cuda.synchronize()
+        extra.update(relaxed_rows=len(rel.rows),
+                     relaxed_s=time.perf_counter() - t0,
+                     relaxed_join_sizes=rel.join_sizes,
+                     relaxed_spill_bytes=rel.spill_bytes)
+    emit(name, schema=f"tpcds.{DS_SCHEMA}", rows=len(cold.rows),
+         fact_rows=fact, cold_s=cold_s, warm_s=warm_s, warm_runs=len(warm),
+         warm_rows_per_s=fact / warm_s, max_memory_allocated=peak,
+         spill_bytes=cold.spill_bytes, join_sizes=cold.join_sizes,
+         grouped_sums_launches=launches, int128_divisions_per_run=divmods,
+         same_rows_every_run=same, check_schema=f"tpcds.{DS_CHECK_SCHEMA}",
+         check_rows=len(on_cpu), card_equals_cpu=sf1_ok,
+         check_card_s=check_card_s, check_cpu_s=check_cpu_s,
+         first_row=cold.rows[0] if cold.rows else None, **extra)
+    check(same, f"{name} rows differ between runs")
+    check(sf1_ok, f"{name} rows on the card differ from the CPU at "
+          f"tpcds.{DS_CHECK_SCHEMA}")
+    if reference is not None:
+        check(extra["matches_numpy_reference"],
+              f"{name} differs from the numpy reference")
+    if relaxed is not None:
+        check(len(cold.rows) > 0 or extra["relaxed_rows"] > 0,
+              f"{name} returned no rows, relaxed variant included")
+
+
+def phases_ds(runner_mod, session_mod, cuda_groupby, int128_mod):
+    from trino_tpu_torch.benchmarks.tpcds_queries import TPCDS_QUERIES
+    from trino_tpu_torch.connectors import tpcds as tpcds_mod
+
+    def runner(schema, device=None):
+        return runner_mod.LocalQueryRunner(
+            session_mod.Session(catalog="tpcds", schema=schema),
+            device=device)
+    runners = (runner(DS_SCHEMA), runner(DS_CHECK_SCHEMA),
+               runner(DS_CHECK_SCHEMA, "cpu"))
+    relaxed = TPCDS_QUERIES[64]
+    for old, new in Q64_RELAXED_EDITS:
+        check(old in relaxed, "q64 relaxed edit does not apply")
+        relaxed = relaxed.replace(old, new)
+    phase_ds("ds_q64", TPCDS_QUERIES[64], runners, cuda_groupby, tpcds_mod,
+             int128_mod, relaxed=relaxed)
+    phase_ds("ds_q47", TPCDS_QUERIES[47], runners, cuda_groupby, tpcds_mod,
+             int128_mod)
+    phase_ds("ds_q36", TPCDS_QUERIES[36], runners, cuda_groupby, tpcds_mod,
+             int128_mod)
+    phase_ds("ds_q38", TPCDS_QUERIES[38], runners, cuda_groupby, tpcds_mod,
+             int128_mod, reference=q38_reference)
+    phase_ds("ds_q78", TPCDS_QUERIES[78], runners, cuda_groupby, tpcds_mod,
+             int128_mod)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -686,6 +878,7 @@ def main() -> int:
         from trino_tpu_torch.connectors import tpch_device as device_mod
         from trino_tpu_torch.exec import expr as expr_mod
         from trino_tpu_torch.ops import cuda_groupby
+        from trino_tpu_torch.ops import int128 as int128_mod
     except ImportError as e:
         print(f"chip_smoke: the trino_tpu_torch package is missing: {e}",
               file=sys.stderr)
@@ -714,6 +907,8 @@ def main() -> int:
                           device_mod, TPCH_QUERIES[18], q18_reference, 2)
         check(q18.spill_bytes > 0, "q18 did not spill to host memory")
         del runner
+        torch.cuda.empty_cache()
+        phases_ds(runner_mod, session_mod, cuda_groupby, int128_mod)
         torch.cuda.empty_cache()
         kernel = phase_kernel(cuda_groupby)
     except PhaseFailed as e:

@@ -5,7 +5,8 @@ PyTorch engine against the JAX engine, on the CPU.
 SQL over tpch.tiny and VALUES rows goes through both runners. The
 short-decimal operators are also held against the JAX engine at the
 expression level, on the same seeded lanes with negative operands, since
-the planner types every SQL decimal division as DECIMAL(38, 6). Integers,
+the planner types every SQL decimal division as DECIMAL(38, 6) (an Int128
+decimal, held in tests/test_torch_int128.py). Integers,
 decimals, strings and dates must be equal, doubles within rel 1e-9.
 """
 
@@ -176,7 +177,13 @@ def test_short_decimal_operator_matches_the_jax_engine(op, lt, rt, out):
 
 
 def test_decimal_over_18_digits_raises_not_yet_ported():
+    """This division is typed DECIMAL(38, 6), an Int128 decimal. It raised
+    ``not yet ported`` until ops/int128.py was ported; now it must equal
+    the JAX engine, HALF_UP rounding and a zero divisor (NULL) included
+    (tests/test_torch_int128.py holds the rest of Int128)."""
     sql = "SELECT CAST(x AS DECIMAL(4,2)) / CAST(y AS DECIMAL(3,1)) " \
-          "FROM (VALUES ('1.25', '-0.3')) t(x, y)"
-    with pytest.raises(QueryError, match="not yet ported: Int128"):
-        LocalQueryRunner(device="cpu").execute(sql)
+          "FROM (VALUES ('1.25', '-0.3'), ('-7.55', '2.0'), " \
+          "('9.99', '0.0')) t(x, y)"
+    got = LocalQueryRunner(device="cpu").execute(sql)
+    assert [str(t) for t in got.types] == ["decimal(38,6)"]
+    _same(got, TpuRunner().execute(sql))

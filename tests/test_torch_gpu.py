@@ -284,3 +284,98 @@ def test_count_distinct_on_card_matches_cpu(cuda):
                      global_aggregate(b, aggs).to_pylist()))
     assert runs[0] == runs[1]
     assert runs[0][1][0][0] == 40
+
+
+def _rows_match(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            if isinstance(b, float) and b != b:
+                assert a != a
+            elif isinstance(b, float):
+                assert a == pytest.approx(b, rel=SUM_REL)
+            else:
+                assert a == b
+
+
+def _tpcds_runner(device, schema="tiny"):
+    from trino_tpu_torch.session import Session
+    return LocalQueryRunner(Session(catalog="tpcds", schema=schema),
+                            device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q", [2, 5, 8, 12, 14, 36, 38, 47, 49, 51, 57,
+                               64, 67, 70, 75, 78, 83, 86, 87, 98])
+def test_tpcds_queries_on_card_match_cpu(cuda, q):
+    """TPC-DS at tiny on the card against the CPU: UNION, INTERSECT and
+    EXCEPT, ROLLUP through GroupId, windows, DECIMAL(38, 6) division."""
+    from trino_tpu_torch.benchmarks.tpcds_queries import TPCDS_QUERIES
+    sql = TPCDS_QUERIES[q]
+    got = _tpcds_runner(cuda).execute(sql)
+    again = _tpcds_runner(cuda).execute(sql)
+    _rows_match(got.rows, _tpcds_runner("cpu").execute(sql).rows)
+    assert again.rows == got.rows
+
+
+WINDOW_SQL = [
+    "SELECT o_custkey, o_orderkey, sum(o_totalprice) OVER (PARTITION BY "
+    "o_custkey ORDER BY o_orderdate, o_orderkey), avg(o_totalprice) OVER "
+    "(PARTITION BY o_custkey), rank() OVER (PARTITION BY o_orderstatus "
+    "ORDER BY o_totalprice DESC), dense_rank() OVER (ORDER BY "
+    "o_orderpriority), lag(o_totalprice, 2, -1.0) OVER (PARTITION BY "
+    "o_custkey ORDER BY o_orderkey), min(o_totalprice) OVER (PARTITION BY "
+    "o_custkey ORDER BY o_orderkey ROWS BETWEEN 2 PRECEDING AND 1 "
+    "FOLLOWING), sum(o_totalprice) OVER (ORDER BY o_orderdate RANGE "
+    "BETWEEN 30 PRECEDING AND CURRENT ROW), count(*) OVER (ORDER BY "
+    "o_orderdate GROUPS BETWEEN 1 PRECEDING AND 1 FOLLOWING), ntile(7) "
+    "OVER (ORDER BY o_orderkey), cume_dist() OVER (PARTITION BY "
+    "o_orderstatus ORDER BY o_orderdate) FROM orders ORDER BY o_orderkey",
+    "SELECT l_returnflag, l_linestatus, sum(l_quantity), grouping("
+    "l_returnflag, l_linestatus), rank() OVER (PARTITION BY grouping("
+    "l_returnflag, l_linestatus) ORDER BY sum(l_quantity)) FROM lineitem "
+    "GROUP BY CUBE (l_returnflag, l_linestatus) ORDER BY 4, 1, 2",
+    "SELECT o_custkey FROM orders WHERE o_orderpriority = '1-URGENT' "
+    "INTERSECT ALL SELECT o_custkey FROM orders WHERE o_orderstatus = 'F' "
+    "EXCEPT SELECT c_custkey FROM customer WHERE c_acctbal < 0 ORDER BY 1",
+    "SELECT l_returnflag, sum(CAST(l_quantity AS DECIMAL(30,2))), "
+    "avg(CAST(l_extendedprice AS DECIMAL(30,2))), min(l_quantity * 1.00 / "
+    "l_linenumber), max(CAST(l_discount AS DECIMAL(25,4)) * l_quantity) "
+    "FROM lineitem GROUP BY l_returnflag ORDER BY 1",
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("i", range(len(WINDOW_SQL)))
+def test_window_setop_int128_sql_on_card_match_cpu(cuda, i):
+    got = LocalQueryRunner(device=cuda).execute(WINDOW_SQL[i]).rows
+    want = LocalQueryRunner(device="cpu").execute(WINDOW_SQL[i]).rows
+    assert got
+    _rows_match(got, want)
+
+
+@pytest.mark.gpu
+def test_int128_primitives_on_card_bit_identical_to_cpu(cuda):
+    from trino_tpu_torch.ops import int128 as i128
+    rng = np.random.default_rng(7)
+    n = 4096
+    vals = [int(x) * 10 ** int(e) * (1 if s else -1) for x, e, s in zip(
+        rng.integers(0, 10 ** 15, n), rng.integers(0, 23, n),
+        rng.integers(0, 2, n))]
+    vals[:4] = [2 ** 127 - 1, -(2 ** 127), 5, -15]
+    lo = np.array([i128.split_const(v)[0] for v in vals], np.int64)
+    hi = np.array([i128.split_const(v)[1] for v in vals], np.int64)
+    divs = np.array([int(x) or 7 for x in rng.integers(-10 ** 6, 10 ** 6,
+                                                       n)], np.int64)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        a = torch.from_numpy(lo).to(dev), torch.from_numpy(hi).to(dev)
+        b = torch.from_numpy(divs).to(dev)
+        bh = i128.sign_extend(b)
+        res = [*i128.mul128(*a, b, bh), *i128.divmod128_trunc(*a, b, bh),
+               *i128.div128_round_half_up_pair(*a, b, bh),
+               *i128.rescale(*a, -4), i128.to_double(*a),
+               i128.lt128(*a, b, bh), *i128.add128(*a, b, bh)]
+        out.append([r.cpu() for r in res])
+    for x, y in zip(*out):
+        assert torch.equal(x, y)

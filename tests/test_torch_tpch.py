@@ -26,7 +26,9 @@ def _same(got, want):
     assert len(got.rows) == len(want.rows)
     for g, w in zip(got.rows, want.rows):
         for a, b in zip(g, w):
-            if isinstance(b, float) and not math.isnan(b):
+            if isinstance(b, float) and math.isnan(b):
+                assert isinstance(a, float) and math.isnan(a)
+            elif isinstance(b, float):
                 assert a == pytest.approx(b, rel=REL)
             else:
                 assert a == b

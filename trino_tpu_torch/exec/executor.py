@@ -19,6 +19,13 @@ without the spill mark is an error. Operators never compute on host
 lanes (the one exception is ``device_concat``, which keeps a merge that
 includes a spilled part on the host, as the JAX engine does).
 
+Set operations: UNION [ALL] concatenates its children's renamed columns
+(``device_concat``, merging string dictionaries); INTERSECT and EXCEPT
+[ALL] tag each side, count rows per distinct tuple with the general
+GROUP BY and keep (or, for ALL, replicate) the rows the counts allow
+(``setop_batches``); GroupId (ROLLUP, CUBE, GROUPING SETS) makes one copy
+of its input per grouping set. Windows are exec/window.py.
+
 Plan nodes, expressions and aggregates outside the ported slice raise
 ``QueryError("not yet ported: ...")``; nothing runs through another
 engine.
@@ -38,18 +45,20 @@ from ..columnar import (Batch, Column, StringDictionary, batch_from_pylist,
                         take_clamped)
 from ..config import (CONFIG, MemoryLimitExceeded, capacity_for,
                       reserve_bytes)
-from ..ops import compact, join as join_ops, sort as sort_ops
+from ..ops import compact, int128 as i128, join as join_ops, sort as sort_ops
 from ..ops.groupby import AggInput, global_aggregate, group_aggregate
 from ..plan.nodes import (Aggregate, AggregationNode, EnforceSingleRowNode,
-                          FilterNode, JoinClause, JoinNode, LimitNode,
-                          OutputNode, PlanNode, ProjectNode, SemiJoinNode,
-                          SortNode, TableScanNode, TopNNode, ValuesNode)
+                          FilterNode, GroupIdNode, JoinClause, JoinNode,
+                          LimitNode, OutputNode, PlanNode, ProjectNode,
+                          SemiJoinNode, SetOpNode, SortNode, TableScanNode,
+                          TopNNode, UnionNode, ValuesNode, WindowNode)
 from ..planner.logical import SemiJoinMultiNode
 from ..rex import Call, InputRef, and_all
 from ..session import Session
 from ..types import BIGINT, BOOLEAN, DOUBLE, DecimalType, REAL, is_string
 from .expr import EvalError, eval_expr, eval_predicate
 from .streamjoin import col_bytes, maybe_stream_join
+from .window import execute_window
 
 # position lanes that carry probe / build row numbers through a residual
 # filter, so outer rows whose matches all failed can be null-extended
@@ -243,6 +252,47 @@ class Executor:
                 c.capacity, dtype=torch.bool, device=c.device))
                 for s, c in src.columns.items()}, 1)
         return src
+
+    def _exec_GroupIdNode(self, node: GroupIdNode) -> Batch:
+        """One copy of the input per grouping set; keys absent from a set
+        become NULL; an int64 id lane tags the set."""
+        src = self.execute(node.source)
+        copies = []
+        for i, keys in enumerate(node.grouping_sets):
+            keep = set(keys)
+            cols = {s: (dc_replace(c, valid=torch.zeros(
+                c.capacity, dtype=torch.bool, device=c.device))
+                if s in node.all_keys and s not in keep else c)
+                for s, c in src.columns.items()}
+            cols[node.id_symbol] = Column(BIGINT, torch.full(
+                (src.capacity,), i, dtype=torch.int64, device=src.device))
+            copies.append(Batch(cols, src.num_rows))
+        return device_concat(copies)
+
+    def _exec_WindowNode(self, node: WindowNode) -> Batch:
+        return execute_window(self.execute(node.source), node)
+
+    # ------------------------------------------------------------------
+    # set operations
+    # ------------------------------------------------------------------
+    def _exec_UnionNode(self, node: UnionNode) -> Batch:
+        parts = []
+        for child, smap in zip(node.children, node.symbol_maps):
+            b = self.execute(child)
+            parts.append(Batch({out: b.column(inner)
+                                for out, inner in smap.items()},
+                               b.num_rows))
+        return device_concat(parts)
+
+    def _exec_SetOpNode(self, node: SetOpNode) -> Batch:
+        left = self.execute(node.left)
+        right = self.execute(node.right)
+        lb = Batch({o: left.column(i) for o, i in node.left_map.items()},
+                   left.num_rows)
+        rb = Batch({o: right.column(i)
+                    for o, i in node.right_map.items()}, right.num_rows)
+        return setop_batches(lb, rb, node.op, node.distinct,
+                             list(node.schema))
 
     # ------------------------------------------------------------------
     # joins
@@ -476,6 +526,65 @@ class Executor:
         return Batch(cols, src.num_rows)
 
 
+def setop_tag(lb: Batch, rb: Batch) -> List[Batch]:
+    """Tag each side with per-side counters (1, 0) and (0, 1) for the
+    counting group-by (the reference's ImplementIntersectDistinctAsUnion
+    and ImplementExceptAll rules)."""
+    tagged = []
+    for b, (lc, rc) in ((lb, (1, 0)), (rb, (0, 1))):
+        cols = dict(b.columns)
+        for sym, v in (("__l$", lc), ("__r$", rc)):
+            cols[sym] = Column(BIGINT, torch.full(
+                (b.capacity,), v, dtype=torch.int64, device=b.device))
+        tagged.append(Batch(cols, b.num_rows))
+    return tagged
+
+
+SETOP_AGGS = (AggInput("sum", "__l$", output="__nl$"),
+              AggInput("sum", "__r$", output="__nr$"))
+
+
+def setop_keep_times(nl, nr, op: str, distinct: bool):
+    """(keep mask, replication times or None) from the per-side counts:
+    INTERSECT keeps tuples on both sides, EXCEPT those only on the left;
+    INTERSECT ALL replicates min(nl, nr) times, EXCEPT ALL nl - nr."""
+    if op == "intersect":
+        keep = (nl > 0) & (nr > 0)
+    elif distinct:
+        keep = (nl > 0) & (nr == 0)
+    else:
+        keep = nl > nr
+    if distinct:
+        return keep, None
+    times = (torch.minimum(nl, nr) if op == "intersect"
+             else torch.clamp(nl - nr, min=0))
+    return keep, times
+
+
+def setop_batches(lb: Batch, rb: Batch, op: str, distinct: bool,
+                  out_syms) -> Batch:
+    """INTERSECT/EXCEPT [ALL] over two schema-aligned batches: count each
+    distinct tuple's rows per side with the general GROUP BY, keep the
+    tuples the counts allow, and for ALL replicate each kept tuple by
+    searchsorted over the cumulative counts (int64)."""
+    both = device_concat(setop_tag(lb, rb))
+    g = group_aggregate(both, out_syms, list(SETOP_AGGS))
+    nl = g.column("__nl$").data
+    nr = g.column("__nr$").data
+    keep, times = setop_keep_times(nl, nr, op, distinct)
+    out = compact.filter_batch(g, keep)
+    if times is not None:
+        times = times[compact.mask_to_gather(keep & g.row_valid())[0]]
+        times = torch.where(out.row_valid(), times, 0).to(torch.int64)
+        incl = torch.cumsum(times, 0)
+        total = int(incl[-1])
+        cap = capacity_for(max(total, 1))
+        i = torch.arange(cap, dtype=torch.int64, device=incl.device)
+        p = torch.searchsorted(incl, i, right=True)
+        out = out.gather(p.clamp(0, out.capacity - 1), total)
+    return Batch({s: out.column(s) for s in out_syms}, out.num_rows)
+
+
 def _with_pos(b: Batch, name: str) -> Batch:
     cols = dict(b.columns)
     cols[name] = Column(BIGINT, torch.arange(b.capacity, dtype=torch.int64,
@@ -658,16 +767,40 @@ def _geomean_post(ssym, csym):
 
 
 def _avg_post(ssym, csym, rtype):
+    """avg = sum / count. An Int128 decimal sum rescales to the result
+    scale and divides by the count exactly, HALF_UP; a result scale
+    below the sum's folds the 10^k into the divisor, so the value rounds
+    once (the reference's DecimalAverageAggregation)."""
     def fn(out: Batch) -> Column:
         s = out.column(ssym)
-        cnt = out.column(csym).data.to(torch.float64)
-        if isinstance(rtype, DecimalType) or isinstance(s.type,
-                                                        DecimalType):
-            raise NotImplementedError(f"not yet ported: avg to {rtype}")
-        data = s.data.to(torch.float64) / torch.clamp(cnt, min=1.0)
+        c = out.column(csym)
+        cnt = c.data.to(torch.float64)
+        valid = cnt > 0
+        if isinstance(rtype, DecimalType) and s.data2 is not None:
+            shift = rtype.scale - s.type.scale
+            lo, hi = i128.rescale(s.data.to(torch.int64), s.data2,
+                                  max(shift, 0))
+            cn = torch.clamp(c.data.to(torch.int64), min=1)
+            if shift < 0:
+                lo, hi = i128.div128_round_half_up_scaled(lo, hi, cn,
+                                                          -shift)
+            else:
+                lo, hi = i128.div128_round_half_up_pair(
+                    lo, hi, cn, torch.zeros_like(cn))
+            return Column(rtype, lo, valid,
+                          data2=None if rtype.is_short else hi)
+        num = s.data.to(torch.float64)
+        if isinstance(s.type, DecimalType):
+            num = num / torch.full((), 10.0 ** s.type.scale,
+                                   dtype=torch.float64, device=num.device)
+        data = num / torch.clamp(cnt, min=1.0)
+        if isinstance(rtype, DecimalType):
+            q = torch.sign(data) * torch.floor(
+                torch.abs(data) * 10.0 ** rtype.scale + 0.5)
+            return Column(rtype, q.to(torch.int64), valid)
         if rtype is REAL:
             data = data.to(torch.float32)
-        return Column(rtype, data, cnt > 0)
+        return Column(rtype, data, valid)
     return fn
 
 
@@ -712,14 +845,22 @@ def device_concat(parts: Sequence[Batch]) -> Batch:
                                for c, n in zip(cs, counts)], cap, pin)
         data2 = None
         if any(c.data2 is not None for c in cs):
-            if not all(c.data2 is not None for c in cs):
-                raise NotImplementedError(
-                    "not yet ported: concat of mixed high lanes")
-            data2 = _cat_into([c.data2[:n] for c, n in zip(cs, counts)],
-                              cap, pin)
+            data2 = _cat_into([_hi_lane_or_fill(c, d)[:n] for c, d, n in
+                               zip(cs, datas, counts)], cap, pin)
         cols[name] = Column(first.type, _cat_into(datas, cap, pin), valid,
                             dic, data2)
     return Batch(cols, total, spilled=spilled)
+
+
+def _hi_lane_or_fill(c: Column, data: torch.Tensor) -> torch.Tensor:
+    """The column's high lane; where a part has none, a decimal
+    sign-extends its low lane (a negative low lane zero-filled would be
+    off by 2^64) and any other type fills zeros."""
+    if c.data2 is not None:
+        return c.data2
+    if isinstance(c.type, DecimalType):
+        return i128.sign_extend(data.to(torch.int64))
+    return torch.zeros_like(data, dtype=torch.int64)
 
 
 def _cat_into(pieces: Sequence[torch.Tensor], cap: int,

@@ -13,8 +13,14 @@ concat, strpos, replace, split_part, lpad, ...), date arithmetic with
 day-time and year-month intervals, and the date fields (year, month,
 day, quarter, ... and EXTRACT of them from a DATE). Anything else raises
 ``NotYetPorted("not yet ported: ...")``, an EvalError that try() lets
-through; a decimal over 18 digits raises ``not yet ported: Int128
-decimals``.
+through.
+
+Decimals over 18 digits (DECIMAL(p>18), among them every SQL decimal
+division, which the planner types DECIMAL(38, 6)) carry a high lane
+(``Column.data2``) and go through ops/int128.py: + - * / %, negation,
+abs, round, comparisons, CASE and coalesce, and casts to and from
+double, bigint, varchar and short decimals. A side without a high lane
+sign-extends its low lane.
 
 Strings are dictionary-coded: a string function runs on the host once
 per dictionary value (``_dict_transform``) and its result table is
@@ -41,6 +47,7 @@ import torch
 
 from ..columnar import Batch, Column, StringDictionary, take_clamped, \
     torch_dtype
+from ..ops import int128 as i128
 from ..ops.datetime import add_months, extract_field
 from ..rex import Call, CaseExpr, Cast, Const, InputRef, RowExpr
 from ..types import (BIGINT, BOOLEAN, DATE, DOUBLE, UNKNOWN, VARCHAR,
@@ -103,9 +110,12 @@ def const_column(e: Const, cap: int, device: torch.device) -> Column:
         d = StringDictionary(np.asarray([e.value], dtype=object))
         return Column(t, _full(0, cap, torch.int32, device), None, d)
     if isinstance(t, DecimalType):
-        _short_only(t)
-        return Column(t, _full(_decimal_unscaled(e.value, t.scale), cap,
-                               _I64, device), None)
+        q = _decimal_unscaled(e.value, t.scale)
+        if t.is_short:
+            return Column(t, _full(q, cap, _I64, device), None)
+        lo, hi = i128.split_const(q)
+        return Column(t, _full(lo, cap, _I64, device), None,
+                      data2=_full(hi, cap, _I64, device))
     return Column(t, _full(e.value, cap, torch_dtype(t), device), None)
 
 
@@ -118,18 +128,22 @@ def _decimal_unscaled(v, scale: int) -> int:
                .to_integral_value(rounding=ROUND_HALF_UP))
 
 
-def _short_only(*types) -> None:
-    """Decimals over 18 digits need the Int128 lanes of ops/int128.py,
-    which are not ported."""
-    for t in types:
-        if isinstance(t, DecimalType) and not t.is_short:
-            raise NotYetPorted(f"not yet ported: Int128 decimals ({t})")
-
-
-def _no_hi_lane(*cols: Column) -> None:
+def _no_hi_lane(what: str, *cols: Column) -> None:
+    """The functions that take no DECIMAL(p>18) operand yet."""
     for c in cols:
         if c.data2 is not None:
-            raise NotYetPorted(f"not yet ported: Int128 decimals ({c.type})")
+            raise NotYetPorted(f"not yet ported: {what} of {c.type}")
+
+
+def _lanes128(c: Column):
+    """(lo, hi) of a decimal column: its high lane, or the low lane
+    sign-extended."""
+    lo = c.data.to(_I64)
+    return lo, (c.data2 if c.data2 is not None else i128.sign_extend(lo))
+
+
+def _long(t: Type) -> bool:
+    return isinstance(t, DecimalType) and not t.is_short
 
 
 def _merge_valid(*cols: Column) -> Optional[torch.Tensor]:
@@ -231,8 +245,7 @@ def _eval_case(e: CaseExpr, batch: Batch) -> Column:
                else const_column(Const(None, e.type), batch.capacity,
                                  batch.device))
     vals = [v for _, v in branches] + [default]
-    _no_hi_lane(*vals)
-    dictionary = None
+    dictionary = hi_lanes = None
     if is_string(e.type):
         dictionary, lanes = _unify(vals, clamp_first=True)
     else:
@@ -240,48 +253,52 @@ def _eval_case(e: CaseExpr, batch: Batch) -> Column:
         # would otherwise promote by its own rules
         dt = _lane_dtype(e.type)
         lanes = [v.data.to(dt) for v in vals]
+        if _long(e.type):
+            hi_lanes = [_lanes128(v)[1] for v in vals]
     data = lanes[-1]
+    hi = hi_lanes[-1] if hi_lanes else None
     valid = default.valid_mask()
     taken = torch.zeros(batch.capacity, dtype=torch.bool,
                         device=batch.device)
-    for (cond, val), lane in zip(branches, lanes[:-1]):
+    for i, (cond, val) in enumerate(branches):
         c_true = cond.data.to(torch.bool)
         if cond.valid is not None:
             c_true = c_true & cond.valid
         sel = c_true & ~taken
-        data = torch.where(sel, lane, data)
+        data = torch.where(sel, lanes[i], data)
+        if hi is not None:
+            hi = torch.where(sel, hi_lanes[i], hi)
         valid = torch.where(sel, val.valid_mask(), valid)
         taken = taken | c_true
-    return Column(e.type, data, valid, dictionary)
+    return Column(e.type, data, valid, dictionary, hi)
 
 
 def _coalesce(e, batch):
     cols = [eval_expr(a, batch) for a in e.args]
-    _no_hi_lane(*cols)
-    dictionary = None
+    dictionary = hi_lanes = None
     if is_string(e.type):
         dictionary, lanes = _unify(cols, clamp_first=False)
     else:
         dt = _lane_dtype(e.type)
         lanes = [c.data.to(dt) for c in cols]
+        if _long(e.type):
+            hi_lanes = [_lanes128(c)[1] for c in cols]
     data = lanes[-1]
+    hi = hi_lanes[-1] if hi_lanes else None
     valid = cols[-1].valid_mask()
-    for c, lane in zip(reversed(cols[:-1]), reversed(lanes[:-1])):
-        v = c.valid_mask()
-        data = torch.where(v, lane, data)
+    for i in range(len(cols) - 2, -1, -1):
+        v = cols[i].valid_mask()
+        data = torch.where(v, lanes[i], data)
+        if hi is not None:
+            hi = torch.where(v, hi_lanes[i], hi)
         valid = v | valid
-    return Column(e.type, data, valid, dictionary)
+    return Column(e.type, data, valid, dictionary, hi)
 
 
 def _nullif(e, batch):
     a = eval_expr(e.args[0], batch)
     b = eval_expr(e.args[1], batch)
-    if is_string(a.type):
-        da, db, _ = _align_string_codes(a, b)
-    else:
-        _no_hi_lane(a, b)
-        da, db = a.data, b.data
-    eq = da == db
+    eq = _equal(a, b)
     both = _merge_valid(a, b)
     if both is not None:
         eq = eq & both
@@ -306,7 +323,7 @@ def _try(e, batch):
 def _greatest_least(which):
     def h(e, batch):
         cols = [eval_expr(a, batch) for a in e.args]
-        _no_hi_lane(*cols)
+        _no_hi_lane(which, *cols)
         if is_string(e.type):
             raise NotYetPorted(f"not yet ported: {which} over varchar")
         pick = torch.maximum if which == "greatest" else torch.minimum
@@ -324,13 +341,18 @@ def _is_distinct_from(e, batch):
     live = batch.row_valid()
     av = live if a.valid is None else a.valid & live
     bv = live if b.valid is None else b.valid & live
+    data = (av != bv) | (av & bv & ~_equal(a, b))
+    return Column(BOOLEAN, data, None)
+
+
+def _equal(a: Column, b: Column) -> torch.Tensor:
+    """Value equality of two columns of one type (NULLs not handled)."""
     if is_string(a.type):
         da, db, _ = _align_string_codes(a, b)
-    else:
-        _no_hi_lane(a, b)
-        da, db = a.data, b.data
-    data = (av != bv) | (av & bv & (da != db))
-    return Column(BOOLEAN, data, None)
+        return da == db
+    if a.data2 is not None or b.data2 is not None:
+        return _cmp_int128("=", a, b)
+    return a.data == b.data
 
 
 # ---- casts ---------------------------------------------------------------
@@ -360,9 +382,9 @@ def cast_column(src: Column, t: Type, safe: bool = False) -> Column:
         return const_column(Const(None, t), src.capacity, src.device)
     if is_string(s) and is_string(t):
         return dc_replace(src, type=t)
-    _short_only(s, t)
-    _no_hi_lane(src)
     if is_string(s):
+        if _long(t):
+            return _parse_long_decimal(src, t, safe)
         return _dict_transform(src, _parser_for(t, safe), t)
     if is_string(t):
         return _to_varchar(src, t)
@@ -375,23 +397,51 @@ def cast_column(src: Column, t: Type, safe: bool = False) -> Column:
     if isinstance(s, DecimalType):
         if isinstance(t, DecimalType):
             shift = t.scale - s.scale
+            if shift == 0 and t.is_short == s.is_short:
+                # a precision-only change keeps both lanes
+                return dc_replace(src, type=t)
+            if src.data2 is not None or not t.is_short:
+                lo, hi = i128.rescale(*_lanes128(src), shift)
+                # an in-range value fits the low lane of a short decimal
+                # exactly; beyond it wraps (ops/int128.py)
+                return Column(t, lo, src.valid,
+                              data2=None if t.is_short else hi)
             if shift >= 0:
                 return Column(t, d * 10 ** shift, src.valid)
             return Column(t, _div_round_half_up(d, 10 ** (-shift)),
                           src.valid)
         if t is BOOLEAN:
-            return Column(t, d != 0, src.valid)
-        sv = _div_scalar(d.to(_F64), 10.0 ** s.scale)
+            nz = d != 0
+            if src.data2 is not None:
+                nz = nz | (src.data2 != 0)
+            return Column(t, nz, src.valid)
+        if src.data2 is not None:
+            if is_integral(t):
+                lo, _ = i128.rescale(*_lanes128(src), -s.scale)
+                return Column(t, lo.to(torch_dtype(t)), src.valid)
+            sv = _div_scalar(i128.to_double(*_lanes128(src)),
+                             10.0 ** s.scale)
+        else:
+            sv = _div_scalar(d.to(_F64), 10.0 ** s.scale)
         if is_integral(t):
             sv = _round_half_up(sv)
         return Column(t, sv.to(torch_dtype(t)), src.valid)
     if isinstance(t, DecimalType):
         if is_integral(s) or s is BOOLEAN:
+            if not t.is_short:
+                lo = d.to(_I64)
+                lo, hi = i128.rescale(lo, i128.sign_extend(lo), t.scale)
+                return Column(t, lo, src.valid, data2=hi)
             return Column(t, d.to(_I64) * 10 ** t.scale, src.valid)
         if s is DATE:
             raise NotYetPorted(f"not yet ported: cast {s} -> {t}")
-        return Column(t, _round_half_up(d.to(_F64) * (10.0 ** t.scale)),
-                      src.valid)
+        scaled = d.to(_F64) * (10.0 ** t.scale)
+        if not t.is_short:
+            rounded = torch.sign(scaled) * torch.floor(
+                torch.abs(scaled) + 0.5)
+            lo, hi = i128.from_double(rounded)
+            return Column(t, lo, src.valid, data2=hi)
+        return Column(t, _round_half_up(scaled), src.valid)
     if t is DATE or s is DATE:
         raise NotYetPorted(f"not yet ported: cast {s} -> {t}")
     if t.name in ("double", "real"):
@@ -432,19 +482,50 @@ def _parser_for(t: Type, safe: bool):
     return parse
 
 
+def _parse_long_decimal(col: Column, t: DecimalType, safe: bool) -> Column:
+    """varchar -> DECIMAL(p>18): parse each dictionary value on the host
+    into its 128-bit unscaled value, then gather the (lo, hi) tables by
+    the code lane."""
+    from decimal import (ROUND_HALF_UP, Context, Decimal,
+                         InvalidOperation)
+    ctx = Context(prec=80)
+    los, his, nulls = [], [], []
+    for v in col.dictionary.values:
+        try:
+            q = int(Decimal(str(v).strip()).scaleb(t.scale, ctx)
+                    .to_integral_value(rounding=ROUND_HALF_UP))
+            lo, hi = i128.split_const(q)
+            nulls.append(False)
+        except (InvalidOperation, ValueError, OverflowError):
+            if not safe:
+                raise EvalError(f"Cannot cast '{v}' to {t}") from None
+            lo = hi = 0
+            nulls.append(True)
+        los.append(lo)
+        his.append(hi)
+    valid = col.valid
+    nulls = np.asarray(nulls, dtype=bool)
+    if nulls.any():
+        nv = ~_codes_through(col, nulls)
+        valid = nv if valid is None else valid & nv
+    return Column(t, _codes_through(col, np.asarray(los, np.int64)), valid,
+                  data2=_codes_through(col, np.asarray(his, np.int64)))
+
+
 def _to_varchar(src: Column, t: Type) -> Column:
-    """number, short decimal, date or boolean -> varchar, row by row on
-    the host."""
+    """number, decimal, date or boolean -> varchar, row by row on the
+    host."""
     s = src.type
     data = src.data.cpu().numpy()
     valid = None if src.valid is None else src.valid.cpu().numpy()
+    hi = None if src.data2 is None else src.data2.cpu().numpy()
     epoch = datetime.date(1970, 1, 1).toordinal()
     if s is DATE:
         def fmt(v):
             return str(datetime.date.fromordinal(int(v) + epoch))
     elif isinstance(s, DecimalType):
-        def fmt(v):
-            q = int(v)
+        def fmt(v, h=None):
+            q = int(v) if h is None else i128.combine_host(int(v), int(h))
             if not s.scale:
                 return str(q)
             sign = "-" if q < 0 else ""
@@ -462,7 +543,8 @@ def _to_varchar(src: Column, t: Type) -> Column:
             return str(int(v))
     else:
         raise NotYetPorted(f"not yet ported: cast {s} -> {t}")
-    out = [None if valid is not None and not valid[i] else fmt(data[i])
+    out = [None if valid is not None and not valid[i]
+           else fmt(data[i]) if hi is None else fmt(data[i], hi[i])
            for i in range(len(data))]
     return _strings_column(out, t, src.device)
 
@@ -536,13 +618,30 @@ def _cmp(op: str):
                 ma, mb = ranks[ma], ranks[mb]
             data = _cmp_lanes(op, _codes_through(a, ma),
                               _codes_through(b, mb))
+        elif a.data2 is not None or b.data2 is not None:
+            data = _cmp_int128(op, a, b)
         else:
             # the planner casts decimals of different scales to one type
-            # before comparing, so short decimals compare unscaled lanes
-            _no_hi_lane(a, b)
+            # before comparing, so decimals compare unscaled lanes
             data = _cmp_lanes(op, a.data, b.data)
         return Column(BOOLEAN, data, valid)
     return h
+
+
+def _cmp_int128(op: str, a: Column, b: Column) -> torch.Tensor:
+    """Two's-complement 128-bit comparison: signed on the high lane,
+    unsigned on the low (sign-bit flip); a side without a high lane
+    sign-extends."""
+    alo, ahi = _lanes128(a)
+    blo, bhi = _lanes128(b)
+    if op in ("=", "<>"):
+        eq = i128.eq128(alo, ahi, blo, bhi)
+        return eq if op == "=" else ~eq
+    if op in ("<", ">="):
+        lt = i128.lt128(alo, ahi, blo, bhi)
+        return lt if op == "<" else ~lt
+    gt = i128.lt128(blo, bhi, alo, ahi)
+    return gt if op == ">" else ~gt
 
 
 # ---- arithmetic ----------------------------------------------------------
@@ -580,7 +679,9 @@ def _arith(op: str):
 
 def _negate(e, batch):
     a = eval_expr(e.args[0], batch)
-    _no_hi_lane(a)
+    if a.data2 is not None:
+        lo, hi = i128.neg128(*_lanes128(a))
+        return dc_replace(a, data=lo, data2=hi, type=e.type)
     return dc_replace(a, data=-a.data, type=e.type)
 
 
@@ -588,13 +689,14 @@ def _decimal_arith(op: str):
     """Short-decimal arithmetic on unscaled int64 lanes: + and - rescale
     both sides to the result scale; * rescales the product HALF_UP; /
     divides in doubles and rounds HALF_UP at the result scale; % is the
-    remainder of the unscaled lanes (0 for a zero divisor)."""
+    remainder of the unscaled lanes (0 for a zero divisor). A long
+    operand or result takes the exact Int128 path."""
     def h(e, batch):
         a = eval_expr(e.args[0], batch)
         b = eval_expr(e.args[1], batch)
         t = e.type
-        _short_only(t)
-        _no_hi_lane(a, b)
+        if a.data2 is not None or b.data2 is not None or not t.is_short:
+            return _decimal_arith_128(op, a, b, t)
         sa = a.type.scale if isinstance(a.type, DecimalType) else 0
         sb = b.type.scale if isinstance(b.type, DecimalType) else 0
         da = a.data.to(_I64)
@@ -625,6 +727,43 @@ def _decimal_arith(op: str):
     return h
 
 
+def _decimal_arith_128(op: str, a: Column, b: Column,
+                       t: DecimalType) -> Column:
+    """Exact Int128 decimal arithmetic over (lo, hi) lanes, HALF_UP
+    rescaling; / and % by zero give NULL."""
+    sa = a.type.scale if isinstance(a.type, DecimalType) else 0
+    sb = b.type.scale if isinstance(b.type, DecimalType) else 0
+    valid = _merge_valid(a, b)
+    alo, ahi = _lanes128(a)
+    blo, bhi = _lanes128(b)
+    if op in ("+", "-"):
+        alo, ahi = i128.rescale(alo, ahi, t.scale - sa)
+        blo, bhi = i128.rescale(blo, bhi, t.scale - sb)
+        lo, hi = (i128.add128(alo, ahi, blo, bhi) if op == "+"
+                  else i128.sub128(alo, ahi, blo, bhi))
+    elif op == "*":
+        lo, hi = i128.mul128(alo, ahi, blo, bhi)
+        lo, hi = i128.rescale(lo, hi, t.scale - sa - sb)
+    else:
+        if op == "/":
+            # (a / b) at scale ts: round(a * 10^(ts - sa + sb) / b)
+            shift = t.scale - sa + sb
+            alo, ahi = i128.rescale(alo, ahi, max(shift, 0))
+            blo, bhi = i128.rescale(blo, bhi, max(-shift, 0))
+        else:
+            # % : both operands at the result scale first
+            alo, ahi = i128.rescale(alo, ahi, t.scale - sa)
+            blo, bhi = i128.rescale(blo, bhi, t.scale - sb)
+        zero = (blo == 0) & (bhi == 0)
+        blo = torch.where(zero, torch.ones_like(blo), blo)
+        if op == "/":
+            lo, hi = i128.div128_round_half_up_pair(alo, ahi, blo, bhi)
+        else:
+            _, _, lo, hi = i128.divmod128_trunc(alo, ahi, blo, bhi)
+        valid = ~zero if valid is None else valid & ~zero
+    return Column(t, lo, valid, data2=None if t.is_short else hi)
+
+
 # ---- numeric functions ---------------------------------------------------
 
 def _cbrt(x: torch.Tensor) -> torch.Tensor:
@@ -647,7 +786,9 @@ def _unary_np(fn):
 
 def _abs(e, batch):
     a = eval_expr(e.args[0], batch)
-    _no_hi_lane(a)
+    if a.data2 is not None:
+        lo, hi = i128.abs128(*_lanes128(a))
+        return dc_replace(a, data=lo, data2=hi)
     return dc_replace(a, data=torch.abs(a.data))
 
 
@@ -663,13 +804,20 @@ def _literal_digits(e) -> int:
 def _round(e, batch):
     a = eval_expr(e.args[0], batch)
     t = a.type
-    _no_hi_lane(a)
     if isinstance(t, DecimalType):
         # digits must be a constant for a static result scale
         n = _literal_digits(e)
         d = a.data.to(_I64)
         if n >= t.scale:
             return a
+        if a.data2 is not None:
+            if t.scale - n > 38:
+                # 10^(scale - n) exceeds 128 bits: every value rounds to 0
+                z = torch.zeros_like(d)
+                return Column(t, z, a.valid, data2=z)
+            lo, hi = i128.rescale(*_lanes128(a), -(t.scale - n))
+            lo, hi = i128.rescale(lo, hi, t.scale - n)
+            return Column(t, lo, a.valid, data2=hi)
         if t.scale - n > 18:
             return Column(t, torch.zeros_like(d), a.valid)
         div = 10 ** (t.scale - n)
@@ -698,7 +846,7 @@ def _floorceil(which):
         t = a.type
         if is_integral(t):
             return a
-        _no_hi_lane(a)
+        _no_hi_lane(which, a)
         d = a.data.to(_F64)
         data = torch.floor(d) if which == "floor" else torch.ceil(d)
         return Column(t, data.to(torch_dtype(t)), a.valid)
@@ -707,14 +855,14 @@ def _floorceil(which):
 
 def _truncate(e, batch):
     a = eval_expr(e.args[0], batch)
-    _no_hi_lane(a)
+    _no_hi_lane("truncate", a)
     return Column(a.type, torch.trunc(a.data.to(_F64))
                   .to(torch_dtype(a.type)), a.valid)
 
 
 def _sign(e, batch):
     a = eval_expr(e.args[0], batch)
-    _no_hi_lane(a)
+    _no_hi_lane("sign", a)
     return Column(a.type, torch.sign(a.data).to(torch_dtype(a.type)),
                   a.valid)
 

@@ -18,6 +18,12 @@ Counterpart of ``trino_tpu/ops/groupby.py``, with its two paths:
   value) and counts the value changes inside each group (``_resort``);
   both sorts lead with the key lanes, so group ids stay aligned.
 
+Decimals over 18 digits carry a high lane; they group by both lanes,
+and sum/min/max over them (or a sum of short decimals that could pass
+2^63) run on Int128 lanes (``_int128_agg``): a sum splits each value into
+three exact int64 addend lanes, min/max order by (high signed, low
+unsigned).
+
 Aggregate null semantics as in SQL: sum/min/max over zero non-null
 inputs are NULL; count is 0.
 """
@@ -34,6 +40,7 @@ from ..columnar import Batch, Column, take_clamped
 from ..config import capacity_for
 from ..types import BIGINT, DOUBLE, REAL, DecimalType, Type, is_string
 from . import cuda_groupby
+from . import int128 as i128
 from .compact import mask_to_gather
 from .hashing import equality_lanes, to_signed_order
 from .sort import lexsort
@@ -154,8 +161,8 @@ def _key_lanes(batch: Batch, key_names: Sequence[str],
         col = batch.column(name)
         col_lanes = equality_lanes(col.data)
         if col.data2 is not None:
-            raise NotImplementedError(
-                f"not yet ported: GROUP BY over {col.type}")
+            # the Int128 high lane takes part in key equality
+            col_lanes = col_lanes + equality_lanes(col.data2)
         if col.valid is not None:
             lanes.append((~col.valid).to(_I64))
             col_lanes = [torch.where(col.valid, u, 0) for u in col_lanes]
@@ -212,11 +219,10 @@ def _segment_agg(batch: Batch, agg: AggInput, seg: _Segments) -> Column:
     if agg.kind == "count":
         return Column(BIGINT, nvalid, None)
     group_valid = nvalid > 0
-    if col.data2 is not None or (
-            isinstance(col.type, DecimalType) and agg.kind == "sum"
-            and col.capacity * 10 ** col.type.precision >= 2 ** 63):
-        raise NotImplementedError(
-            f"not yet ported: {agg.kind} over {col.type} (Int128)")
+    if _wide_decimal_agg(col, agg.kind):
+        lo, hi = _int128_lanes(col, order)
+        return _int128_agg(col, agg.kind, lo, hi, group_valid,
+                           _segment_reducer(valid, seg))
     vals = col.data[order]
 
     if agg.kind == "sum":
@@ -248,13 +254,13 @@ def _distinct_lanes(batch: Batch, agg: AggInput, col: Column,
     """(valid, tie lanes) of count(DISTINCT): the rows that count (live,
     non-NULL, passing the mask), then a lane pushing the others last and
     the value's equality lanes (zero where not counted)."""
-    if col.data2 is not None:
-        raise NotImplementedError(
-            f"not yet ported: count(DISTINCT) over {col.type} (Int128)")
     valid = _agg_row_mask(batch, agg, live)
     if col.valid is not None:
         valid = valid & col.valid
-    vlanes = [torch.where(valid, u, 0) for u in equality_lanes(col.data)]
+    eq = equality_lanes(col.data)
+    if col.data2 is not None:
+        eq = eq + equality_lanes(col.data2)
+    vlanes = [torch.where(valid, u, 0) for u in eq]
     return valid, [(~valid).to(_I64)] + vlanes
 
 
@@ -479,10 +485,10 @@ def _masked_agg(batch: Batch, agg: AggInput, gmasks: List[torch.Tensor],
     if agg.kind == "count":
         return Column(BIGINT, nvalid, None)
     group_valid = nvalid > 0
-    if isinstance(col.type, DecimalType) and (
-            col.data2 is not None or agg.kind == "sum"):
-        raise NotImplementedError(
-            f"not yet ported: {agg.kind} over {col.type}")
+    if _wide_decimal_agg(col, agg.kind):
+        lo, hi = _int128_lanes(col)
+        return _int128_agg(col, agg.kind, lo, hi, group_valid,
+                           _masked_reducer(gmasks))
     if agg.kind == "sum":
         acc = vals.to(_F64 if vals.is_floating_point() else _I64)
         data = torch.stack([torch.where(g, acc, torch.zeros_like(acc)).sum()
@@ -501,6 +507,77 @@ def _masked_agg(batch: Batch, agg: AggInput, gmasks: List[torch.Tensor],
     pos = torch.arange(cap, dtype=_I64, device=vals.device)
     firsts = torch.stack([torch.where(g, pos, cap).amin() for g in gmasks])
     return replace(col.gather(firsts), valid=group_valid)
+
+
+def _wide_decimal_agg(col: Column, kind: str) -> bool:
+    """True when the aggregate runs on Int128 lanes: sum/min/max of a
+    long decimal, and a short-decimal sum that could pass 2^63 (the
+    capacity is static, so capacity * 10^precision < 2^63 proves the
+    int64 sum exact)."""
+    if not isinstance(col.type, DecimalType):
+        return False
+    if col.data2 is not None:
+        return kind in ("sum", "min", "max")
+    return kind == "sum" and col.capacity * 10 ** col.type.precision \
+        >= 2 ** 63
+
+
+def _int128_lanes(col: Column, order: Optional[torch.Tensor] = None):
+    """(lo, hi) of a decimal column; a short decimal sign-extends."""
+    lo = col.data.to(_I64)
+    hi = col.data2 if col.data2 is not None else i128.sign_extend(lo)
+    if order is not None:
+        lo, hi = lo[order], hi[order]
+    return lo, hi
+
+
+def _segment_reducer(valid: torch.Tensor, seg: "_Segments"):
+    """reduce(lane, how, ident, match) over the sorted groups, over the
+    rows where valid and, given match = (hi, per-group hi), where the
+    row's hi equals its group's."""
+    def reduce(lane, how, ident, match=None):
+        m = valid
+        if match is not None:
+            m = m & (match[0] == match[1][seg.gid])
+        if how == "sum":
+            return torch.zeros(seg.gcap, dtype=_I64,
+                               device=lane.device).index_add_(
+                0, seg.gid, torch.where(m, lane, 0))
+        return seg.reduce(torch.where(m, lane, ident), how, ident)
+    return reduce
+
+
+def _masked_reducer(gmasks: List[torch.Tensor]):
+    """The same over one row mask per group."""
+    def reduce(lane, how, ident, match=None):
+        red = {"sum": torch.sum, "amin": torch.amin, "amax": torch.amax}[how]
+        fill = 0 if how == "sum" else ident
+        out = []
+        for k, g in enumerate(gmasks):
+            if match is not None:
+                g = g & (match[0] == match[1][k])
+            out.append(red(torch.where(g, lane, fill)))
+        return torch.stack(out)
+    return reduce
+
+
+def _int128_agg(col: Column, kind: str, lo: torch.Tensor, hi: torch.Tensor,
+                group_valid: torch.Tensor, reduce) -> Column:
+    """sum/min/max over Int128 lanes. sum: value = w0 + w1*2^32 + hi*2^64
+    with 0 <= w0, w1 < 2^32, three exact int64 sums (up to 2^31 rows a
+    group), recombined with carries. min/max: the extreme high lane
+    (signed), then the extreme low lane (unsigned, by the sign flip)
+    among the rows holding it."""
+    if kind == "sum":
+        s0, s1, s2 = (reduce(w, "sum", 0) for w in i128.sum_lanes(lo, hi))
+        slo, shi = i128.combine_sums(s0, s1, s2)
+        return Column(_sum_type(col.type), slo, group_valid, data2=shi)
+    how = "amin" if kind == "min" else "amax"
+    ident = _identity(kind, _I64)
+    mhi = reduce(hi, how, ident)
+    mlo = to_signed_order(reduce(to_signed_order(lo), how, ident,
+                                 (hi, mhi)))
+    return Column(col.type, mlo, group_valid, data2=mhi)
 
 
 def global_aggregate(batch: Batch, aggs: Sequence[AggInput],

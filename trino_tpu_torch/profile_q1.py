@@ -1,11 +1,14 @@
-"""Where a TPC-H query's time goes in the PyTorch engine, on one CUDA card.
+"""Where a TPC-H or TPC-DS query's time goes in the PyTorch engine, on one
+CUDA card.
 
-    python3 -m trino_tpu_torch.profile_q1 [--query 1] [--schema sf10]
+    python3 -m trino_tpu_torch.profile_q1 [--catalog tpch|tpcds]
+                                          [--query 1] [--schema sf10]
                                           [--reps 3] [--max-batch-rows N]
 
 Prints one JSON object: the card, cold and warm wall times of the query,
 the per-layer split of ``--reps`` more runs (the scan of each table,
-joins, aggregations, expressions, sort/TopN: the card is synchronised
+joins, aggregations, expressions, windows, set operations (UNION,
+INTERSECT, EXCEPT), GroupId copies, sort/TopN: the card is synchronised
 around every plan node, and each node's own time goes to its layer; a
 spilled join's copies to host memory and back count to the join), the
 running peak of device memory after each plan node of the first of those
@@ -34,7 +37,9 @@ _LAYERS = {"TableScanNode": "scan", "JoinNode": "join",
            "SemiJoinNode": "join", "SemiJoinMultiNode": "join",
            "AggregationNode": "aggregation", "SortNode": "sort_topn",
            "TopNNode": "sort_topn", "FilterNode": "expressions",
-           "ProjectNode": "expressions"}
+           "ProjectNode": "expressions", "WindowNode": "window",
+           "UnionNode": "set_op", "SetOpNode": "set_op",
+           "GroupIdNode": "group_id"}
 
 
 def _sync_wall(fn) -> float:
@@ -78,9 +83,11 @@ class TimedExecutor(Executor):
 def main() -> None:
     from .runner import LocalQueryRunner
     from .session import Session
+    from .benchmarks.tpcds_queries import TPCDS_QUERIES
     from .benchmarks.tpch_queries import TPCH_QUERIES
 
     ap = argparse.ArgumentParser()
+    ap.add_argument("--catalog", choices=("tpch", "tpcds"), default="tpch")
     ap.add_argument("--query", type=int, default=1)
     ap.add_argument("--schema", default="sf10")
     ap.add_argument("--reps", type=int, default=3)
@@ -88,9 +95,11 @@ def main() -> None:
     args = ap.parse_args()
     if args.max_batch_rows is not None:
         CONFIG.max_batch_rows = args.max_batch_rows
-    sql = TPCH_QUERIES[args.query]
+    sql = (TPCH_QUERIES if args.catalog == "tpch"
+           else TPCDS_QUERIES)[args.query]
 
-    runner = LocalQueryRunner(Session(catalog="tpch", schema=args.schema))
+    runner = LocalQueryRunner(Session(catalog=args.catalog,
+                                      schema=args.schema))
     cold = _sync_wall(lambda: runner.execute(sql))
     warm = [_sync_wall(lambda: runner.execute(sql))
             for _ in range(args.reps)]
@@ -126,7 +135,8 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     print(json.dumps({
-        "card": card, "query": args.query, "schema": args.schema,
+        "card": card, "catalog": args.catalog, "query": args.query,
+        "schema": args.schema,
         "max_batch_rows": CONFIG.max_batch_rows,
         "cold_s": cold, "warm_s": warm, "layers_s": layers,
         "node_peak_bytes": peaks, "spill_bytes": spilled,

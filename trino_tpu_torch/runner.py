@@ -1,7 +1,7 @@
 """LocalQueryRunner: in-process parse -> plan -> optimize -> execute.
 
 Counterpart of ``trino_tpu/runner.py`` for the SELECT and EXPLAIN paths,
-over the PyTorch executor, with the tpch catalog. The runner runs on
+over the PyTorch executor, with the tpch and tpcds catalogs. The runner runs on
 ``"cuda"`` unless its caller passes ``device="cpu"``; without a card it
 raises (config.resolve_device).
 """
@@ -14,6 +14,7 @@ from typing import List, Optional, Tuple
 
 from .catalog import CatalogManager
 from .config import DeviceLike, resolve_device
+from .connectors.tpcds import TpcdsConnector
 from .connectors.tpch import TpchConnector
 from .exec.executor import Executor, QueryError
 from .plan.nodes import OutputNode, plan_tree_lines
@@ -48,6 +49,7 @@ class LocalQueryRunner:
         self.device = resolve_device(device)
         self.catalogs = CatalogManager()
         self.catalogs.register("tpch", TpchConnector(device=self.device))
+        self.catalogs.register("tpcds", TpcdsConnector(device=self.device))
         self.session = session or Session(catalog="tpch", schema="tiny")
 
     def execute(self, sql: str) -> QueryResult:
