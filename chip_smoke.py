@@ -3,13 +3,18 @@
     python3 chip_smoke.py
 
 Builds every CUDA kernel from trino_tpu_torch/csrc, drives TPC-H q1, q3,
-q6, q9, q12, q14 and q18 at tpch.sf10 and TPC-DS q64, q47, q36, q38 and
-q78 at tpcds.sf10 through
+q6, q9, q12, q14 and q18 at tpch.sf10, q1, q6 and q3 at tpch.sf100 (600M
+lineitem rows: beyond one card's memory budget, so the scans stream), q18
+at tpch.sf10 under a memory budget that makes its join stream, and TPC-DS
+q64, q47, q36, q38 and q78 at tpcds.sf10 through
 ``trino_tpu_torch.runner.LocalQueryRunner().execute``, holds each kernel
-against its plain PyTorch version, and checks each TPC-H query's rows
+against its plain PyTorch version at every shape those runs gave it, and
+checks each TPC-H query's rows
 against an independent numpy reference over the lanes the card generates
 (themselves held bit-identical to the numpy generators) and the tables the
-host generates. q3 runs four times; its rows must be bit-identical every
+host generates; at sf100 the references read the card's lanes range by
+range, each sf100 query must peak under 20 GiB of device memory, and
+q3's lineitem-orders join must stream there. q3 at sf10 runs four times; its rows must be bit-identical every
 time. q18 must spill its join outputs to host memory. Each TPC-DS query's
 warm runs must return its cold run's rows; at tpcds.sf1 its rows on the
 card must equal the engine's own rows on the CPU; q38 at sf10 must equal
@@ -23,6 +28,7 @@ without printing a result, as does a machine without CUDA.
 from __future__ import annotations
 
 import datetime
+import gc
 import json
 import subprocess
 import sys
@@ -32,6 +38,9 @@ import numpy as np
 import torch
 
 SCHEMA = "sf10"
+BIG_SCHEMA = "sf100"
+BIG_RANGE_ORDERS = 4_000_000    # orders per range of the sf100 references
+BIG_PEAK_BYTES = 20 << 30       # the 16 GiB budget plus the 4 GiB scan cache
 DEVICE = torch.device("cuda")
 SUM_REL = 1e-9          # f64 on both sides; only the summation order differs
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM (NVIDIA data sheet)
@@ -164,14 +173,9 @@ def rows_match(got, want) -> bool:
 def phase_q1(runner_mod, session_mod, cuda_groupby, q1):
     runner = runner_mod.LocalQueryRunner(
         session_mod.Session(catalog="tpch", schema=SCHEMA))
+    cache0 = cache_stats()
     torch.cuda.reset_peak_memory_stats()
-    cuda_groupby.LAUNCHES = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    result = runner.execute(q1)
-    torch.cuda.synchronize()
-    cold = time.perf_counter() - t0
-    launches = cuda_groupby.LAUNCHES
+    result, cold, launches = cold_run("q1", runner, q1, cuda_groupby)
     peak = torch.cuda.max_memory_allocated()
     t0 = time.perf_counter()
     warm_result = runner.execute(q1)
@@ -179,24 +183,68 @@ def phase_q1(runner_mod, session_mod, cuda_groupby, q1):
     warm = time.perf_counter() - t0
     check(launches >= 1, "q1 did not launch grouped_sums")
     check(warm_result.rows == result.rows, "q1 rows differ between runs")
-    return result.rows, launches, cold, warm, peak
+    return result.rows, launches, cold, warm, peak, dict(
+        stream_fields(result), **cache_delta(cache0))
 
 
 def days(y: int, m: int, d: int) -> int:
     return (datetime.date(y, m, d) - datetime.date(1970, 1, 1)).days
 
 
-def run_timed(runner, sql: str, cuda_groupby, reps: int = WARM_REPS):
+# grouped_sums launches by (rows, lanes, groups) and by phase, counted in
+# the cold run of every phase: each shape the main paths give the kernel
+SHAPES: dict = {}
+# the launches by shape of the cold run under way (None outside of one)
+# and of the last cold run
+_COLD: dict = {"now": None, "last": {}}
+
+
+def record_kernel_shapes(cg) -> None:
+    """Count grouped_sums launches by (rows, lanes, groups) through the
+    module attribute the engine calls, from the wrapper's own count, in
+    cold runs only."""
+    inner = cg.grouped_sums
+
+    def recording(gid, lanes, nseg):
+        before = cg.LAUNCHES
+        out = inner(gid, lanes, nseg)
+        now = _COLD["now"]
+        if now is not None and cg.LAUNCHES > before:
+            key = (int(gid.shape[0]), len(lanes), int(nseg))
+            now[key] = now.get(key, 0) + cg.LAUNCHES - before
+        return out
+    cg.grouped_sums = recording
+
+
+def cold_run(phase: str, runner, sql: str, cuda_groupby):
+    """(result, wall s, grouped_sums launches) of a cold run, its
+    launches added to SHAPES under ``phase``."""
+    cuda_groupby.LAUNCHES = 0
+    _COLD["now"] = shapes = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        result = runner.execute(sql)
+        torch.cuda.synchronize()
+    finally:
+        _COLD["now"] = None
+    wall = time.perf_counter() - t0
+    launches = cuda_groupby.LAUNCHES
+    check(sum(shapes.values()) == launches,
+          f"{phase}: launches by shape do not add up to the count")
+    for key, n in shapes.items():
+        by_phase = SHAPES.setdefault(key, {})
+        by_phase[phase] = by_phase.get(phase, 0) + n
+    _COLD["last"] = shapes
+    return result, wall, launches
+
+
+def run_timed(phase: str, runner, sql: str, cuda_groupby,
+              reps: int = WARM_REPS):
     """(cold result, warm results, cold s, median warm s, peak bytes,
     grouped_sums launches in the cold run)"""
     torch.cuda.reset_peak_memory_stats()
-    cuda_groupby.LAUNCHES = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    cold = runner.execute(sql)
-    torch.cuda.synchronize()
-    cold_s = time.perf_counter() - t0
-    launches = cuda_groupby.LAUNCHES
+    cold, cold_s, launches = cold_run(phase, runner, sql, cuda_groupby)
     peak = torch.cuda.max_memory_allocated()
     warm, walls = [], []
     for _ in range(reps):
@@ -205,6 +253,37 @@ def run_timed(runner, sql: str, cuda_groupby, reps: int = WARM_REPS):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     return cold, warm, cold_s, sorted(walls)[len(walls) // 2], peak, launches
+
+
+def cache_stats() -> dict:
+    from trino_tpu_torch.exec import scancache
+    return dict(scancache.STATS)
+
+
+def cache_delta(before: dict) -> dict:
+    """The scan cache's bytes now and its lookups since ``before``."""
+    from trino_tpu_torch.exec import scancache
+    now = scancache.STATS
+    return {"scan_cache_bytes": scancache.cache_memory_bytes(),
+            **{f"scan_cache_{k}": now[k] - before[k] for k in now}}
+
+
+def stream_fields(result) -> dict:
+    return {"peak_reserved_bytes": result.peak_reserved_bytes,
+            "stream_chunks": result.stream_chunks,
+            "stream_h2d_bytes": result.stream_h2d_bytes,
+            "stream_overlapped": result.stream_overlapped,
+            "stream_copy_ms": result.stream_copy_ms,
+            "stream_wait_ms": result.stream_wait_ms,
+            "stream_ops": result.stream_ops,
+            "spill_bytes": result.spill_bytes}
+
+
+def free_device() -> None:
+    """Collect dead runners (their connectors key the scan cache weakly,
+    so their cached lanes go with them) and return the memory."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def host_lanes(batch, cols):
@@ -288,8 +367,10 @@ def q3_reference(tpch_mod, device_mod):
 
 
 def phase_q3(runner, cuda_groupby, tpch_mod, device_mod, q3):
+    cache0 = cache_stats()
     cold, warm, cold_s, warm_s, peak, launches = run_timed(
-        runner, q3, cuda_groupby)
+        "q3", runner, q3, cuda_groupby)
+    extra = dict(stream_fields(cold), **cache_delta(cache0))
     want, sizes, n_li = q3_reference(tpch_mod, device_mod)
     got = cold.rows
     ok = rows_match(got, want)
@@ -299,7 +380,7 @@ def phase_q3(runner, cuda_groupby, tpch_mod, device_mod, q3):
          max_memory_allocated=peak, grouped_sums_launches=launches,
          join_sizes=cold.join_sizes, reference_join_sizes=sizes,
          matches_numpy_reference=ok, bit_identical_runs=1 + len(warm),
-         bit_identical=same, first_row=got[0] if got else None)
+         bit_identical=same, first_row=got[0] if got else None, **extra)
     check(len(got) == 10 and ok, "q3 rows differ from the numpy reference")
     check([tuple(x) for x in cold.join_sizes] == sizes,
           "q3 join sizes differ from the numpy reference")
@@ -307,8 +388,10 @@ def phase_q3(runner, cuda_groupby, tpch_mod, device_mod, q3):
 
 
 def phase_q6(runner, cuda_groupby, tpch_mod, device_mod, q6):
+    cache0 = cache_stats()
     cold, warm, cold_s, warm_s, peak, launches = run_timed(
-        runner, q6, cuda_groupby)
+        "q6", runner, q6, cuda_groupby)
+    extra = dict(stream_fields(cold), **cache_delta(cache0))
     sf = tpch_mod.SCHEMAS[SCHEMA]
     li, n_li = host_lanes(device_mod.lineitem_batch(
         0, tpch_mod.table_rows("orders", sf), sf, Q6_COLS, DEVICE),
@@ -325,7 +408,7 @@ def phase_q6(runner, cuda_groupby, tpch_mod, device_mod, q6):
          rows_kept=int(keep.sum()), cold_s=cold_s, warm_s=warm_s,
          warm_rows_per_s=n_li / warm_s, max_memory_allocated=peak,
          grouped_sums_launches=launches, matches_numpy_reference=ok,
-         bit_identical=same, result=cold.rows, reference=want)
+         bit_identical=same, result=cold.rows, reference=want, **extra)
     check(ok, "q6 differs from the numpy reference")
     check(same, "q6 differs between runs")
 
@@ -348,10 +431,11 @@ def emit_query(name, cold, warm, cold_s, warm_s, peak, launches, n_li,
                **extra) -> bool:
     """Print a query phase; True when the warm runs equal the cold one."""
     same = all(w.rows == cold.rows for w in warm)
+    extra = {**stream_fields(cold), **extra}
     emit(name, schema=f"tpch.{SCHEMA}", rows=len(cold.rows),
          lineitem_rows=n_li, cold_s=cold_s, warm_s=warm_s,
          warm_runs=len(warm), warm_rows_per_s=n_li / warm_s,
-         max_memory_allocated=peak, spill_bytes=cold.spill_bytes,
+         max_memory_allocated=peak,
          join_sizes=cold.join_sizes, grouped_sums_launches=launches,
          same_rows_every_run=same, **extra)
     return same
@@ -510,6 +594,7 @@ def phase_query(name, runner, cuda_groupby, tpch_mod, device_mod, sql,
     and join sizes against the numpy reference. For q9 the warm runs
     also time the host dictionary transforms (LIKE over p_name)."""
     extra = {}
+    cache0 = cache_stats()
     if expr_mod is not None:
         spent = [0.0]
         inner = expr_mod._dict_transform
@@ -522,12 +607,13 @@ def phase_query(name, runner, cuda_groupby, tpch_mod, device_mod, sql,
         expr_mod._dict_transform = timed
     try:
         cold, warm, cold_s, warm_s, peak, launches = run_timed(
-            runner, sql, cuda_groupby, reps)
+            name, runner, sql, cuda_groupby, reps)
     finally:
         if expr_mod is not None:
             expr_mod._dict_transform = inner
     if expr_mod is not None:
         extra["dict_transform_s_per_run"] = spent[0] / (1 + reps)
+    extra.update(cache_delta(cache0))
     torch.cuda.empty_cache()
     want, sizes, n_li = reference(tpch_mod, device_mod)
     ok = rows_match(cold.rows, want)
@@ -544,7 +630,8 @@ def phase_query(name, runner, cuda_groupby, tpch_mod, device_mod, sql,
     return cold
 
 
-def phase_q1_check(rows, tpch_mod, device_mod, cold, warm, launches, peak):
+def phase_q1_check(rows, tpch_mod, device_mod, cold, warm, launches, peak,
+                   extra):
     sf = tpch_mod.SCHEMAS[SCHEMA]
     orders = tpch_mod.table_rows("orders", sf)
     # the whole table in one generation call: the same pure function of
@@ -561,7 +648,7 @@ def phase_q1_check(rows, tpch_mod, device_mod, cold, warm, launches, peak):
          lineitem_rows=nrows, grouped_sums_launches=launches,
          cold_s=cold, warm_s=warm, warm_rows_per_s=nrows / warm,
          max_memory_allocated=peak, matches_numpy_reference=ok,
-         first_row=rows[0] if rows else None)
+         first_row=rows[0] if rows else None, **extra)
     check(ok, "q1 rows differ from the numpy reference")
 
     # the device generator against the port's numpy host generator on a
@@ -585,19 +672,27 @@ def phase_q1_check(rows, tpch_mod, device_mod, cold, warm, launches, peak):
          bit_identical_to_numpy=True)
 
 
-def _q1_lanes(cap: int, nseg: int, seed: int):
+def _q1_lanes(cap: int, nseg: int, seed: int, k: int = 19):
     """q1-shaped kernel inputs: packed ids (some rows dead or outside the
     domain) and K = 19 f64 lanes (live, count(*), 7 sums x (value, mask),
-    3 avg counts), from a numpy seed."""
+    3 avg counts), from a numpy seed. Another ``k`` gives the combine's
+    shape: a count lane and k - 1 partial sums."""
     rng = np.random.default_rng(seed)
     dev = DEVICE
     gid = torch.from_numpy(
         rng.integers(0, nseg + 2, cap).astype(np.int32)).to(dev)
+    live = (gid < nseg).to(torch.float64)
+    if k != 19:
+        lanes = [live * torch.from_numpy(
+            rng.integers(1, 1 << 20, cap).astype(np.float64)).to(dev)]
+        lanes += [live * torch.from_numpy(
+            np.round(rng.uniform(0, 1e12, cap), 2)).to(dev)
+            for _ in range(k - 1)]
+        return gid, lanes, [0]
     qty = torch.from_numpy(rng.integers(1, 51, cap).astype(np.float64)).to(dev)
     price = torch.from_numpy(
         np.round(rng.uniform(901, 104950, cap), 2)).to(dev)
     disc = torch.from_numpy(rng.integers(0, 11, cap) / 100.0).to(dev)
-    live = (gid < nseg).to(torch.float64)
     one = torch.ones_like(live)
     values = [qty, price, price * (1 - disc), price * (1 - disc) * 1.04,
               qty, price, disc]
@@ -630,15 +725,20 @@ def compare(cg, gid, lanes, nseg, count_idx):
     return abs_err, rel_err, same
 
 
-def phase_kernel(cg):
-    nseg, cap = 12, 1 << 26
-    gid, lanes, counts = _q1_lanes(cap, nseg, seed=1)
+def time_kernel(cg, phase: str, cap: int, k: int, nseg: int,
+                seed: int) -> dict:
+    """grouped_sums at ``cap`` rows, ``k`` lanes and ``nseg`` groups
+    against its plain version and against ``index_add_``; its bound from
+    the bytes it must move and the FP64 additions it must do."""
+    gid, lanes, counts = _q1_lanes(cap, nseg, seed=seed, k=k)
     k = len(lanes)
     abs_err, rel_err, same = compare(cg, gid, lanes, nseg, set(counts))
     check(rel_err <= SUM_REL, f"grouped_sums rel err {rel_err}")
     check(same, "two grouped_sums launches differ")
-    ms = cuda_ms(lambda: cg.grouped_sums(gid, lanes, nseg), 10)
-    plain_ms = cuda_ms(lambda: cg.grouped_sums_plain(gid, lanes, nseg), 3)
+    reps = max(10, min(1000, (1 << 30) // (cap * k * 8)))
+    ms = cuda_ms(lambda: cg.grouped_sums(gid, lanes, nseg), reps)
+    plain_ms = cuda_ms(lambda: cg.grouped_sums_plain(gid, lanes, nseg),
+                       max(3, reps // 10))
     # yardstick: one PyTorch call computing the same function on the same
     # inputs laid out as [cap, K] (the layout copy is not timed)
     stacked = torch.stack(lanes, dim=1)
@@ -648,7 +748,7 @@ def phase_kernel(cg):
     def library():
         acc.zero_()
         acc.index_add_(0, dest, stacked)
-    library_ms = cuda_ms(library, 3)
+    library_ms = cuda_ms(library, max(3, reps // 10))
     lib_err = float((acc[:nseg].T - torch.stack(
         cg.grouped_sums_plain(gid, lanes, nseg))).abs().max())
     del stacked, dest, acc
@@ -656,13 +756,34 @@ def phase_kernel(cg):
     ops = k * cap
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / FP64_OPS_PER_S * 1e3
-    emit("kernel", name="grouped_sums", cap=cap, lanes=k, nseg=nseg,
+    emit(phase, name="grouped_sums", cap=cap, lanes=k, nseg=nseg,
          max_abs_err=abs_err, max_rel_err=rel_err, bit_identical=same,
          ms=ms, plain_ms=plain_ms, library_ms=library_ms,
          library_max_abs_err=lib_err, bytes=nbytes, ops=ops,
-         bound_bytes_ms=bytes_ms, bound_ops_ms=ops_ms)
+         bound_bytes_ms=bytes_ms, bound_ops_ms=ops_ms, reps=reps)
     del gid, lanes
     torch.cuda.empty_cache()
+    return dict(name="grouped_sums", route="cuda",
+                source="trino_tpu_torch/csrc/grouped_sums.cu",
+                replaces="trino_tpu/ops/pallas_groupby.py:102",
+                max_abs_err=abs_err, max_rel_err=rel_err, ms=ms,
+                plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                library_ms=library_ms, cap=cap, lanes=k, nseg=nseg)
+
+
+def phase_kernel(cg):
+    """The kernel at every shape the main paths gave it in their cold
+    runs (SHAPES), each held against its plain version and timed with
+    its launches; then its edges. Returns the kernels line's entries."""
+    check(bool(SHAPES), "no phase launched grouped_sums")
+    kernels = []
+    for i, (cap, k, nseg) in enumerate(sorted(SHAPES)):
+        by_phase = SHAPES[(cap, k, nseg)]
+        entry = time_kernel(cg, "kernel_split", cap, k, nseg, seed=3 + i)
+        entry["launches"] = sum(by_phase.values())
+        entry["launches_by_phase"] = by_phase
+        kernels.append(entry)
 
     # edges: every row dead; ids past the domain; the widest domain
     rng = np.random.default_rng(2)
@@ -684,13 +805,223 @@ def phase_kernel(cg):
         check(e_rel <= SUM_REL and e_same, f"edge {name}")
         emit("kernel_edge", case=name, nseg=ns, max_abs_err=e_abs,
              max_rel_err=e_rel, bit_identical=e_same)
-    return dict(name="grouped_sums", route="cuda",
-                source="trino_tpu_torch/csrc/grouped_sums.cu",
-                replaces="trino_tpu/ops/pallas_groupby.py:102",
-                max_abs_err=abs_err, max_rel_err=rel_err, ms=ms,
-                plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                library_ms=library_ms)
+    return kernels
+
+
+def big_ranges(n_orders: int):
+    return [(lo, min(lo + BIG_RANGE_ORDERS, n_orders))
+            for lo in range(0, n_orders, BIG_RANGE_ORDERS)]
+
+
+def q1_big_reference(tpch_mod, device_mod):
+    """q1 at sf100 with numpy alone, range by range over the lineitem
+    lanes the card generates: counts per (flag, status) as integers, the
+    sums as doubles added range after range."""
+    sf = tpch_mod.SCHEMAS[BIG_SCHEMA]
+    n_orders = tpch_mod.table_rows("orders", sf)
+    cutoff = days(1998, 12, 1) - 90
+    counts, sums, n_li = {}, {}, 0
+    for lo, hi in big_ranges(n_orders):
+        b = device_mod.lineitem_batch(lo, hi, sf, Q1_COLS, DEVICE)
+        lane, n = host_lanes(b, Q1_COLS)
+        flags = b.column("l_returnflag").dictionary.values
+        stats = b.column("l_linestatus").dictionary.values
+        del b
+        n_li += n
+        nkey = len(flags) * len(stats)
+        # rows past the cutoff go to an extra bin, nkey
+        key = np.where(lane["l_shipdate"] <= cutoff,
+                       lane["l_returnflag"].astype(np.int64) * len(stats)
+                       + lane["l_linestatus"], nkey)
+        price = lane["l_extendedprice"]
+        disc = lane["l_discount"]
+        disc_price = price * (1 - disc)
+        weights = [lane["l_quantity"], price, disc_price,
+                   disc_price * (1 + lane["l_tax"]), disc]
+        cnt = np.bincount(key, minlength=nkey + 1)[:nkey]
+        part = [np.bincount(key, weights=w, minlength=nkey + 1)[:nkey]
+                for w in weights]
+        for g in np.nonzero(cnt)[0]:
+            k = (str(flags[g // len(stats)]), str(stats[g % len(stats)]))
+            counts[k] = counts.get(k, 0) + int(cnt[g])
+            sums[k] = sums.get(k, np.zeros(5)) + np.array(
+                [float(x[g]) for x in part])
+    rows = []
+    for k in sorted(counts):
+        c, v = counts[k], sums[k]
+        rows.append([k[0], k[1], *map(float, v[:4]), float(v[0] / c),
+                     float(v[1] / c), float(v[4] / c), c])
+    return rows, None, n_li
+
+
+def q6_big_reference(tpch_mod, device_mod):
+    """q6 at sf100 with numpy alone, range by range."""
+    sf = tpch_mod.SCHEMAS[BIG_SCHEMA]
+    total, n_li = 0.0, 0
+    for lo, hi in big_ranges(tpch_mod.table_rows("orders", sf)):
+        li, n = host_lanes(device_mod.lineitem_batch(
+            lo, hi, sf, Q6_COLS, DEVICE), Q6_COLS)
+        n_li += n
+        disc = li["l_discount"]
+        keep = ((li["l_shipdate"] >= days(1994, 1, 1))
+                & (li["l_shipdate"] < days(1995, 1, 1))
+                & (disc >= 0.05) & (disc <= 0.07) & (li["l_quantity"] < 24))
+        total += float(np.sum(li["l_extendedprice"][keep] * disc[keep]))
+    return [[total]], None, n_li
+
+
+def q3_big_reference(tpch_mod, device_mod):
+    """q3 at sf100 with numpy alone, one range of orders at a time with
+    the lineitem rows the card generates for the same orders (never more
+    than one range of lineitem on the host): the orders join by
+    searchsorted within the range's unique o_orderkey (a lineitem row
+    whose order lies elsewhere would find no match, and the join sizes
+    would disagree), the customer join by index into the dense
+    c_custkey, revenue per order by bincount, the top 10 of every
+    range's orders. Returns (rows, join sizes, lineitem rows)."""
+    sf = tpch_mod.SCHEMAS[BIG_SCHEMA]
+    n_orders = tpch_mod.table_rows("orders", sf)
+    n_cust = tpch_mod.table_rows("customer", sf)
+    cust = tpch_mod.TpchConnector(device="cpu")._customer(
+        np.arange(1, n_cust + 1, dtype=np.int64), sf,
+        ["c_custkey", "c_mktsegment"])
+    check(bool(np.array_equal(cust.column("c_custkey").data[:n_cust].numpy(),
+                              np.arange(1, n_cust + 1))),
+          "q3 reference: c_custkey not dense")
+    seg = cust.column("c_mktsegment")
+    c_ok = (seg.dictionary.values[seg.data[:n_cust].numpy()]
+            == "BUILDING")
+    del cust
+    cutoff = days(1995, 3, 15)
+    l_kept = o_kept = hits = keeps = n_li = 0
+    cands = []
+    for lo, hi in big_ranges(n_orders):
+        od, _ = host_lanes(device_mod.orders_batch(lo, hi, sf, Q3_O_COLS,
+                                                   DEVICE), Q3_O_COLS)
+        li, n = host_lanes(device_mod.lineitem_batch(
+            lo, hi, sf, Q3_L_COLS, DEVICE), Q3_L_COLS)
+        n_li += n
+        o_key = od["o_orderkey"]
+        check(bool(np.all(np.diff(o_key) > 0)), "o_orderkey not unique")
+        oc = od["o_custkey"]
+        check(bool(np.all((oc >= 1) & (oc <= n_cust))),
+              "q3 reference: o_custkey outside customer")
+        o_ok = od["o_orderdate"] < cutoff
+        l_ok = li["l_shipdate"] > cutoff
+        lk = li["l_orderkey"][l_ok]
+        opos = np.clip(np.searchsorted(o_key, lk), 0, len(o_key) - 1)
+        hit = (o_key[opos] == lk) & o_ok[opos]
+        keep = c_ok[oc[opos[hit]] - 1]
+        l_kept += int(l_ok.sum())
+        o_kept += int(o_ok.sum())
+        hits += int(hit.sum())
+        keeps += int(keep.sum())
+        grp = opos[hit][keep]
+        rev = (li["l_extendedprice"][l_ok][hit]
+               * (1 - li["l_discount"][l_ok][hit]))[keep]
+        sums = np.bincount(grp, weights=rev, minlength=len(o_key))
+        g = np.nonzero(np.bincount(grp, minlength=len(o_key)))[0]
+        cands.append((o_key[g], sums[g], od["o_orderdate"][g],
+                      od["o_shippriority"][g]))
+        del od, li
+    key, rev, date, prio = (np.concatenate(x) for x in zip(*cands))
+    top = np.lexsort((date, -rev))[:10]
+    epoch = datetime.date(1970, 1, 1)
+    rows = [[int(key[i]), float(rev[i]),
+             epoch + datetime.timedelta(days=int(date[i])), int(prio[i])]
+            for i in top]
+    sizes = [(l_kept, o_kept, hits), (hits, int(c_ok.sum()), keeps)]
+    return rows, sizes, n_li
+
+
+def phase_big(name, runner, sql, cuda_groupby, tpch_mod, device_mod,
+              reference, schema=BIG_SCHEMA, **want):
+    """One query streamed beyond the card's memory budget: a cold and a
+    warm run (warm rows must equal cold rows), its rows (and join sizes,
+    where the reference gives them) against the numpy reference, and
+    what the chunk loop and the scan cache did in the cold run."""
+    cache0 = cache_stats()
+    cold, warm, cold_s, warm_s, peak, launches = run_timed(
+        name, runner, sql, cuda_groupby, 1)
+    shapes = _COLD["last"]
+    extra = dict(stream_fields(cold), **cache_delta(cache0))
+    free_device()
+    t0 = time.perf_counter()
+    rows, sizes, n_li = reference(tpch_mod, device_mod)
+    ref_s = time.perf_counter() - t0
+    free_device()
+    ok = len(cold.rows) == len(rows) and rows_match(cold.rows, rows)
+    sizes_ok = sizes is None or [tuple(x) for x in cold.join_sizes] == sizes
+    same = warm[0].rows == cold.rows
+    emit(name, schema=f"tpch.{schema}", rows=len(cold.rows),
+         lineitem_rows=n_li, cold_s=cold_s, warm_s=warm_s,
+         warm_rows_per_s=n_li / warm_s, max_memory_allocated=peak,
+         grouped_sums_launches=launches,
+         grouped_sums_shapes=[[*k, v] for k, v in sorted(shapes.items())],
+         join_sizes=cold.join_sizes, reference_join_sizes=sizes,
+         matches_numpy_reference=ok, same_rows_warm=same,
+         reference_s=ref_s, first_row=cold.rows[0] if cold.rows else None,
+         **extra)
+    check(ok, f"{name} rows differ from the numpy reference")
+    check(sizes_ok, f"{name} join sizes differ from the numpy reference")
+    check(same, f"{name} warm rows differ from the cold rows")
+    if want.get("streams"):
+        check(cold.stream_chunks > 0, f"{name} did not stream")
+    if want.get("join_streams"):
+        check(cold.stream_ops.get("join", 0) > 0,
+              f"{name}: the join did not stream")
+    check(peak < BIG_PEAK_BYTES,
+          f"{name} peaked at {peak} bytes of device memory")
+    if want.get("launches"):
+        check(launches >= 1, f"{name} did not launch grouped_sums")
+
+
+def phases_big(runner_mod, session_mod, cuda_groupby, tpch_mod, device_mod,
+               queries):
+    """q1, q6 and q3 at tpch.sf100 on one runner; then q18 at sf10 under
+    the JAX bench's streaming budget (the orders build state plus 64
+    MB). Each sf100 query must peak under BIG_PEAK_BYTES."""
+    runner = runner_mod.LocalQueryRunner(
+        session_mod.Session(catalog="tpch", schema=BIG_SCHEMA))
+    phase_big("q1_sf100", runner, queries[1], cuda_groupby, tpch_mod,
+              device_mod, q1_big_reference, streams=True, launches=True)
+    phase_big("q6_sf100", runner, queries[6], cuda_groupby, tpch_mod,
+              device_mod, q6_big_reference)
+    phase_big("q3_sf100", runner, queries[3], cuda_groupby, tpch_mod,
+              device_mod, q3_big_reference, streams=True, join_streams=True)
+    del runner
+    free_device()
+    sf = tpch_mod.SCHEMAS[SCHEMA]
+    from trino_tpu_torch.config import capacity_for
+    budget = capacity_for(tpch_mod.table_rows("orders", sf)) * 48 \
+        + (64 << 20)
+    session = session_mod.Session(catalog="tpch", schema=SCHEMA)
+    session.set("query_max_memory_per_node", budget)
+    runner = runner_mod.LocalQueryRunner(session)
+    cache0 = cache_stats()
+    cold, warm, cold_s, warm_s, peak, q18_launches = run_timed(
+        "q18_stream", runner, queries[18], cuda_groupby, 1)
+    extra = dict(stream_fields(cold), **cache_delta(cache0))
+    del runner
+    free_device()
+    want, sizes, n_li = q18_reference(tpch_mod, device_mod)
+    ok = len(cold.rows) == len(want) and rows_match(cold.rows, want)
+    same = warm[0].rows == cold.rows
+    emit("q18_stream", schema=f"tpch.{SCHEMA}", budget=budget,
+         rows=len(cold.rows), lineitem_rows=n_li, cold_s=cold_s,
+         warm_s=warm_s, warm_rows_per_s=n_li / warm_s,
+         max_memory_allocated=peak, grouped_sums_launches=q18_launches,
+         join_sizes=cold.join_sizes, reference_join_sizes=sizes,
+         streamed_join_chunks=cold.stream_ops.get("join", 0),
+         streamed_agg_chunks=cold.stream_ops.get("agg", 0),
+         matches_numpy_reference=ok, same_rows_warm=same, **extra)
+    check(ok, "q18_stream rows differ from the numpy reference")
+    check([tuple(x) for x in cold.join_sizes] == sizes,
+          "q18_stream join sizes differ from the numpy reference")
+    check(same, "q18_stream warm rows differ from the cold rows")
+    check(cold.stream_chunks > 0, "q18_stream did not stream")
+    check(cold.stream_ops.get("join", 0) > 0,
+          "q18_stream: the join did not stream")
 
 
 def ds_rows_match(got, want) -> bool:
@@ -793,8 +1124,10 @@ def phase_ds(name, sql, runners, cuda_groupby, tpcds_mod, int128_mod,
     engine's rows on the CPU."""
     card, card_check, cpu_check = runners
     int128_mod.DIVMOD_CALLS = 0
+    cache0 = cache_stats()
     cold, warm, cold_s, warm_s, peak, launches = run_timed(
-        card, sql, cuda_groupby, 2)
+        name, card, sql, cuda_groupby, 2)
+    extra = cache_delta(cache0)
     divmods = int128_mod.DIVMOD_CALLS // 3
     torch.cuda.empty_cache()
     fact = ds_fact_rows(card, sql, tpcds_mod)
@@ -807,7 +1140,6 @@ def phase_ds(name, sql, runners, cuda_groupby, tpcds_mod, int128_mod,
     on_cpu = cpu_check.execute(sql).rows
     check_cpu_s = time.perf_counter() - t0
     sf1_ok = ds_rows_match(on_card, on_cpu)
-    extra = {}
     if reference is not None:
         want = reference(tpcds_mod, DS_SCHEMA)
         extra.update(reference=want,
@@ -886,10 +1218,11 @@ def main() -> int:
     try:
         card = phase_device()
         phase_build(cuda_groupby)
-        rows, launches, cold, warm, peak = phase_q1(
+        record_kernel_shapes(cuda_groupby)
+        rows, sf10_launches, cold, warm, peak, extra = phase_q1(
             runner_mod, session_mod, cuda_groupby, TPCH_QUERIES[1])
-        phase_q1_check(rows, tpch_mod, device_mod, cold, warm, launches,
-                       peak)
+        phase_q1_check(rows, tpch_mod, device_mod, cold, warm,
+                       sf10_launches, peak, extra)
         phase_orders_gen(tpch_mod, device_mod)
         runner = runner_mod.LocalQueryRunner(
             session_mod.Session(catalog="tpch", schema=SCHEMA))
@@ -907,16 +1240,18 @@ def main() -> int:
                           device_mod, TPCH_QUERIES[18], q18_reference, 2)
         check(q18.spill_bytes > 0, "q18 did not spill to host memory")
         del runner
-        torch.cuda.empty_cache()
+        free_device()
+        phases_big(runner_mod, session_mod, cuda_groupby, tpch_mod,
+                   device_mod, TPCH_QUERIES)
+        free_device()
         phases_ds(runner_mod, session_mod, cuda_groupby, int128_mod)
-        torch.cuda.empty_cache()
-        kernel = phase_kernel(cuda_groupby)
+        free_device()
+        kernels = phase_kernel(cuda_groupby)
     except PhaseFailed as e:
         print(f"chip_smoke: phase failed: {e}", file=sys.stderr)
         return 1
-    kernel["launches"] = launches
     print(card, flush=True)
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -78,7 +78,10 @@ def test_q1_on_card_matches_cpu(cuda):
     q1 = TPCH_QUERIES[1]
     before = cg.LAUNCHES
     got = LocalQueryRunner(device=cuda).execute(q1).rows
-    assert cg.LAUNCHES == before + 1
+    # lineitem is one split at tiny: the streaming aggregation reads it
+    # whole from the scan cache, aggregates it (one launch) and combines
+    # the partial (one more)
+    assert cg.LAUNCHES == before + 2
     want = LocalQueryRunner(device="cpu").execute(q1).rows
     assert len(got) == len(want) == 4
     for g, w in zip(got, want):
@@ -379,3 +382,164 @@ def test_int128_primitives_on_card_bit_identical_to_cpu(cuda):
         out.append([r.cpu() for r in res])
     for x, y in zip(*out):
         assert torch.equal(x, y)
+
+
+# ---- streamed operators and the scan cache on the card --------------------
+
+class _LoopExecutor:
+    """The counters run_streamed keeps, on a device."""
+
+    def __init__(self, device):
+        from trino_tpu_torch.session import Session
+        self.device = device
+        self.session = Session(catalog="tpch", schema="tiny")
+        self.stream_chunks = self.stream_h2d_bytes = 0
+        self.stream_overlapped = 0
+        self.stream_copy_ms = self.stream_wait_ms = 0.0
+        self.stream_ops = {}
+        self.stream_s = 0.0
+
+
+def _host_chunks(sizes, seed):
+    from trino_tpu_torch.columnar import Batch, Column
+    from trino_tpu_torch.types import DOUBLE
+    rng = np.random.default_rng(seed)
+    return [Batch({"v": Column(DOUBLE, torch.from_numpy(
+        rng.uniform(-1e3, 1e3, n)).pin_memory())}, n) for n in sizes]
+
+
+@pytest.mark.gpu
+def test_copy_stream_loop_equals_a_synchronous_loop(cuda):
+    """run_streamed's chunks (pinned sources, the copy stream, an event
+    per chunk) give what a loop of plain synchronous copies gives, bit
+    for bit: each chunk padded with zeros to its capacity bucket, and
+    the compute over it (elementwise: a float64 cumsum on the card is
+    not the same from one launch to the next)."""
+    from trino_tpu_torch.config import capacity_for
+    from trino_tpu_torch.exec import streamjoin as sj
+    sizes = [1 << 20, 3, 1000, (1 << 18) + 5, 8]
+    chunks = _host_chunks(sizes, 11)
+    ex = _LoopExecutor(cuda)
+
+    def dispatch(lane):
+        return lane.clone(), lane * lane + lane
+
+    got = []
+    sj.run_streamed(ex, "agg", iter(chunks),
+                    lambda chunk, i: dispatch(chunk.column("v").data),
+                    lambda out, i: got.append(out))
+    torch.cuda.synchronize()
+    assert ex.stream_chunks == len(sizes)
+    assert 0 <= ex.stream_overlapped <= len(sizes) - 1
+    assert ex.stream_copy_ms > 0
+    assert ex.stream_h2d_bytes == 8 * sum(sizes)
+    for n, c, (lane, square) in zip(sizes, chunks, got):
+        plain = torch.zeros(capacity_for(n, minimum=8), dtype=torch.float64,
+                            device=cuda)
+        plain[:n] = c.column("v").data.to(cuda)
+        want_lane, want_square = dispatch(plain)
+        assert torch.equal(lane, want_lane)
+        assert not lane[n:].any()
+        assert torch.equal(square, want_square)
+
+
+@pytest.mark.gpu
+def test_pinned_chunk_is_held_until_its_copy_completes(cuda):
+    """The copier keeps each pinned source until its copy's event has
+    completed: however much pinned memory is allocated and overwritten
+    meanwhile, the device chunk holds the source's values."""
+    from trino_tpu_torch.exec import streamjoin as sj
+    n = 1 << 24
+    (chunk,) = _host_chunks([n], 12)
+    want = chunk.column("v").data.clone()
+    copier = sj.ChunkCopier(cuda)
+    assert copier.stream != torch.cuda.current_stream(cuda)
+    pending = copier.h2d(chunk)
+    del chunk
+    assert len(copier.in_flight) == 1
+    junk = [torch.full((n,), -1.0, dtype=torch.float64, pin_memory=True)
+            for _ in range(3)]
+    dev, _ = copier.ready(pending)
+    torch.cuda.synchronize()
+    assert torch.equal(dev.column("v").data[:n].cpu(), want)
+    copier.release()
+    assert copier.in_flight == []
+    del junk
+
+
+@pytest.mark.gpu
+def test_overlap_is_measured_from_events(cuda):
+    """stream_overlapped counts the copies that had completed when the
+    compute stream arrived at their chunk, from the loop's events: when
+    each chunk keeps the compute stream busy for longer than a copy,
+    every copy after the first is hidden and the compute stream waits
+    for the first alone; with no compute to hide behind, it waits for
+    every copy."""
+    from trino_tpu_torch.exec import streamjoin as sj
+    (chunk,) = _host_chunks([1 << 26], 13)
+    chunks = [chunk] * 4            # 512 MB a copy
+
+    def busy(c, i):
+        torch.cuda._sleep(100_000_000)  # 10^8 cycles: tens of ms
+
+    def idle(c, i):
+        return None
+
+    for dispatch, hidden in ((busy, len(chunks) - 1), (idle, 0)):
+        # a first loop fills the allocator's cache, so that no device
+        # allocation stalls the host in the loop measured
+        for _ in range(2):
+            ex = _LoopExecutor(cuda)
+            sj.run_streamed(ex, "agg", iter(chunks), dispatch,
+                            lambda out, i: None)
+        assert ex.stream_overlapped == hidden
+        assert ex.stream_copy_ms > 0
+        if hidden:
+            assert ex.stream_wait_ms < ex.stream_copy_ms / 2
+        else:
+            assert ex.stream_wait_ms > ex.stream_copy_ms / len(chunks)
+
+
+def _rows_close(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            if isinstance(b, float):
+                assert a == pytest.approx(b, rel=SUM_REL)
+            else:
+                assert a == b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk_rows", [4096, 1 << 20])
+@pytest.mark.parametrize("q", [1, 3, 6, 18])
+def test_streamed_queries_on_card_match_cpu(cuda, q, chunk_rows):
+    """Every streamed operator forced on the card (chunk loop, copy
+    stream, streamed join, chunked aggregation) against the CPU."""
+    from trino_tpu_torch.session import Session
+
+    def run(device):
+        s = Session(catalog="tpch", schema="tiny")
+        s.set("stream_chunk_rows", chunk_rows)
+        return LocalQueryRunner(s, device=device).execute(TPCH_QUERIES[q])
+    got = run(cuda)
+    assert got.stream_chunks > 0 and got.stream_overlapped >= 0
+    _rows_close(got.rows, run("cpu").rows)
+
+
+@pytest.mark.gpu
+def test_whole_table_scan_cache_on_card(cuda):
+    """On a card the scan cache holds a table whole: the second run is a
+    table hit with the same rows."""
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.exec import scancache
+    runner = LocalQueryRunner(device=cuda)
+    # lineitem in 15 splits at tiny, so that the table entry is a
+    # concatenation (a one-split table is served by its split entry)
+    runner.catalogs.register("tpch", TpchConnector(4096, device=cuda))
+    sql = TPCH_QUERIES[6]
+    first = runner.execute(sql).rows
+    hits = scancache.STATS["table_hit"]
+    assert runner.execute(sql).rows == first
+    assert scancache.STATS["table_hit"] > hits
+    _rows_close(first, LocalQueryRunner(device="cpu").execute(sql).rows)

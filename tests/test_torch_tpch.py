@@ -115,17 +115,30 @@ def _small_memory_runner():
 
 
 def test_join_output_over_the_memory_limit_raises():
-    # the pushed-down constraint leaves the probe scan without an
-    # estimate, so the join is not streamed and its output breaches
+    # materialised, the join's output breaches the limit and raises; a
+    # pushed-down constraint leaves the table's size as an upper bound
+    # of the probe scan, which is over the budget, so by default the
+    # probe streams instead and the query completes
     sql = ("SELECT count(*) FROM lineitem JOIN orders "
            "ON l_orderkey = o_orderkey WHERE l_quantity > 0")
+    runner = _small_memory_runner()
+    runner.session.set("stream_chunk_rows", -1)
     with pytest.raises(QueryError, match="memory limit") as e:
-        _small_memory_runner().execute(sql)
+        runner.execute(sql)
     assert e.value.error_name == "EXCEEDED_LOCAL_MEMORY_LIMIT"
+    got = _small_memory_runner().execute(sql)
+    assert got.stream_ops.get("join", 0) > 0
+    assert got.rows == LocalQueryRunner(device="cpu").execute(sql).rows
 
 
 def test_join_the_jax_engine_would_stream_raises():
+    # the name predates the streamed join: where the JAX engine streams
+    # the probe, the port now streams it too, and the rows agree
     sql = ("SELECT count(*) FROM lineitem JOIN orders "
            "ON l_orderkey = o_orderkey")
-    with pytest.raises(QueryError, match="not yet ported: streamed join"):
-        _small_memory_runner().execute(sql)
+    got = _small_memory_runner().execute(sql)
+    assert got.stream_ops.get("join", 0) > 0
+    from trino_tpu.session import Session as TpuSession
+    session = TpuSession(catalog="tpch", schema="tiny")
+    session.set("query_max_memory_per_node", 1 << 19)
+    assert got.rows == TpuRunner(session=session).execute(sql).rows

@@ -47,6 +47,9 @@ class EngineConfig:
     # spills to host memory in chunks of at most this many rows
     max_batch_rows: int = 1 << 22
     spill_enabled: bool = True
+    # device bytes the scan cache (exec/scancache.py) may hold across
+    # queries; 0 turns the cache off
+    scan_cache_bytes: int = 4 << 30
     prewarm_enabled: bool = True
     prewarm_top_k: int = 8
     stream_chunk_rows: int = 0

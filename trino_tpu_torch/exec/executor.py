@@ -26,6 +26,13 @@ GROUP BY and keep (or, for ALL, replicate) the rows the counts allow
 (``setop_batches``); GroupId (ROLLUP, CUBE, GROUPING SETS) makes one copy
 of its input per grouping set. Windows are exec/window.py.
 
+Beyond device memory (exec/streamjoin.py): a scan that would not fit
+the memory budget streams in chunks through a Filter/Project chain, a
+hash join's probe, or an aggregation. An aggregation over a scan of
+several splits aggregates split by split and combines the partials
+(``_try_streaming_aggregation``); on a card, a table that fits the scan
+cache (exec/scancache.py) is read whole from it instead.
+
 Plan nodes, expressions and aggregates outside the ported slice raise
 ``QueryError("not yet ported: ...")``; nothing runs through another
 engine.
@@ -33,7 +40,6 @@ engine.
 
 from __future__ import annotations
 
-import time
 from dataclasses import replace as dc_replace
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -42,11 +48,12 @@ import torch
 
 from ..catalog import CatalogManager
 from ..columnar import (Batch, Column, StringDictionary, batch_from_pylist,
-                        take_clamped)
+                        pad_batch, take_clamped)
 from ..config import (CONFIG, MemoryLimitExceeded, capacity_for,
                       reserve_bytes)
 from ..ops import compact, int128 as i128, join as join_ops, sort as sort_ops
-from ..ops.groupby import AggInput, global_aggregate, group_aggregate
+from ..ops.groupby import (COMBINABLE_KINDS, AggInput, global_aggregate,
+                           group_aggregate)
 from ..plan.nodes import (Aggregate, AggregationNode, EnforceSingleRowNode,
                           FilterNode, GroupIdNode, JoinClause, JoinNode,
                           LimitNode, OutputNode, PlanNode, ProjectNode,
@@ -57,7 +64,11 @@ from ..rex import Call, InputRef, and_all
 from ..session import Session
 from ..types import BIGINT, BOOLEAN, DOUBLE, DecimalType, REAL, is_string
 from .expr import EvalError, eval_expr, eval_predicate
-from .streamjoin import col_bytes, maybe_stream_join
+from .scancache import (cache_memory_bytes, col_bytes, evict_cache_pressure,
+                        read_split_cached, read_table_cached)
+from .streamjoin import (_row_bytes, agg_chunk_capacity, check_interrupt,
+                         host_scan_chunks, maybe_stream_chain,
+                         maybe_stream_join, run_streamed)
 from .window import execute_window
 
 # position lanes that carry probe / build row numbers through a residual
@@ -109,20 +120,30 @@ class Executor:
         self.join_sizes: List[Tuple[int, int, int]] = []
         # bytes of join output written to host memory (host spill)
         self.spilled_bytes: int = 0
+        # largest single memory reservation of the query
+        self.peak_reserved_bytes: int = 0
+        # streamed operators (exec/streamjoin.py): chunks, bytes copied
+        # to the device, copies complete before the compute stream needed
+        # them, the copies' device ms and the compute stream's ms waiting
+        # for them, chunks by operator, and the chunk loops' wall time
+        self.stream_chunks: int = 0
+        self.stream_h2d_bytes: int = 0
+        self.stream_overlapped: int = 0
+        self.stream_copy_ms: float = 0.0
+        self.stream_wait_ms: float = 0.0
+        self.stream_ops: Dict[str, int] = {}
+        self.stream_s: float = 0.0
 
     def execute(self, node: PlanNode) -> Batch:
-        cancel = self.session.cancel
-        if cancel is not None and cancel.is_set():
-            raise QueryError("Query was canceled")
-        deadline = self.session.deadline
-        if deadline is not None and time.monotonic() > deadline:
-            raise QueryError(
-                "Query exceeded the maximum run time "
-                "(query_max_run_time)", error_name="EXCEEDED_TIME_LIMIT")
+        check_interrupt(self.session)
         try:
             out = None
+            if isinstance(node, (FilterNode, ProjectNode)):
+                out = maybe_stream_chain(self, node)
             if isinstance(node, AggregationNode):
-                out = self._try_masked_filter_aggregation(node)
+                out = self._try_streaming_aggregation(node)
+                if out is None:
+                    out = self._try_masked_filter_aggregation(node)
             if out is None:
                 method = getattr(self, "_exec_" + type(node).__name__,
                                  None)
@@ -174,6 +195,102 @@ class Executor:
                         for s, e in nd.assignments.items()}
         return cols, live
 
+    def _apply_node(self, nd: PlanNode, b: Batch) -> Batch:
+        """One Filter or Project node over an already computed input."""
+        if isinstance(nd, FilterNode):
+            return compact.filter_batch(b, eval_predicate(nd.predicate, b))
+        return Batch({s: eval_expr(e, b) for s, e in nd.assignments.items()},
+                     b.num_rows)
+
+    def _read_split(self, conn, split, columns) -> Batch:
+        """A split read through the scan cache, on this device."""
+        return read_split_cached(conn, split, columns).to(self.device)
+
+    # ------------------------------------------------------------------
+    # streaming aggregation over scan splits: aggregate split by split
+    # (or chunk by chunk) and combine the partials, so the scan is never
+    # materialised whole
+    # ------------------------------------------------------------------
+    # the kind the port lowers whose partials do not combine (a distinct
+    # count); the JAX engine's other such kinds are not ported
+    _NONSTREAMABLE = {"approx_distinct"}
+
+    def _try_streaming_aggregation(self, node: AggregationNode):
+        if any(a.distinct or a.kind in self._NONSTREAMABLE
+               for a in node.aggregates.values()):
+            return None
+        if not node.group_keys and not node.aggregates:
+            return None
+        chain: List[PlanNode] = []
+        cur = node.source
+        while isinstance(cur, (FilterNode, ProjectNode)):
+            chain.append(cur)
+            cur = cur.source
+        if not isinstance(cur, TableScanNode):
+            return None
+        conn = self.catalogs.connector(cur.handle.catalog)
+        par = int(self.session.get("task_concurrency")) or 1
+        columns = sorted(set(cur.assignments.values()))
+        # beyond the budget the splits are cut further into chunks that
+        # stream through the double-buffered loop, and the partials fold
+        # every 8 so that they stay bounded too
+        stream_cap = agg_chunk_capacity(self, cur)
+        # a table the scan cache holds whole is aggregated in one pass
+        whole = (None if stream_cap is not None
+                 else read_table_cached(conn, cur.handle, columns, par,
+                                        self.device))
+        partial, run_full = make_stream_runners(self, chain, node)
+
+        def renamed(raw: Batch) -> Batch:
+            return Batch({sym: raw.column(col)
+                          for sym, col in cur.assignments.items()},
+                         raw.num_rows)
+
+        if whole is not None:
+            return run_full(renamed(whole.to(self.device)))
+        splits = None
+        if stream_cap is None:
+            splits = conn.get_splits(cur.handle, par)
+            if len(splits) < 2:
+                return None
+        partials: List[Batch] = []
+        finals: List[AggInput] = []
+        post: dict = {}
+
+        def consume(batch: Batch) -> Batch:
+            out, fins, fns = partial(batch)
+            if not finals:
+                finals.extend(fins)
+                post.update(fns)
+            return out
+
+        def combine(parts: List[Batch]) -> Batch:
+            return _combine(node, device_concat(parts), finals)
+
+        if stream_cap is not None:
+            # the streamed footprint: 2 chunks in flight and at most 8
+            # chunk-sized partials before a fold
+            self._reserve_streamed(
+                10 * stream_cap * _row_bytes(cur.schema),
+                f"chunk-streamed aggregation over {cur.handle.table} "
+                f"(chunk capacity {stream_cap})")
+
+            def collect(out: Batch, i: int) -> None:
+                partials.append(out)
+                if len(partials) >= 8:
+                    partials[:] = [combine(partials)]
+
+            run_streamed(self, "agg", host_scan_chunks(self, cur,
+                                                        stream_cap),
+                         lambda chunk, i: consume(chunk), collect)
+            if not partials:
+                return None         # an empty scan: the generic path
+        else:
+            for sp in splits:
+                partials.append(consume(renamed(
+                    self._read_split(conn, sp, columns))))
+        return _apply_post(node, combine(partials), post)
+
     def _try_masked_filter_aggregation(self, node: AggregationNode):
         chain: List[PlanNode] = []
         cur = node.source
@@ -191,16 +308,29 @@ class Executor:
         conn = self.catalogs.connector(node.handle.catalog)
         columns = sorted(set(node.assignments.values()))
         par = int(self.session.get("task_concurrency")) or 1
-        if node.handle.constraint is None and node.handle.limit is None \
-                and hasattr(conn, "table_row_count"):
-            est = conn.table_row_count(node.handle)
-            if est:
-                self._reserve(int(est), len(columns),
-                              f"table scan of {node.handle.table}")
-        splits = conn.get_splits(node.handle, par)
-        parts = [conn.read_split(s, columns).to(self.device)
-                 for s in splits]
-        whole = device_concat(parts) if len(parts) > 1 else parts[0]
+        whole = read_table_cached(conn, node.handle, columns, par,
+                                  self.device)
+        if whole is None:
+            # check the memory guard before materialising the table; a
+            # pushed-down constraint or limit shrinks the result by a
+            # factor known only once the splits are read, so such a scan
+            # reserves the rows it has read after every split
+            what = f"table scan of {node.handle.table}"
+            exact = node.handle.constraint is None \
+                and node.handle.limit is None
+            if exact and hasattr(conn, "table_row_count"):
+                est = conn.table_row_count(node.handle)
+                if est:
+                    self._reserve(int(est), len(columns), what)
+            splits = conn.get_splits(node.handle, par)
+            parts, rows = [], 0
+            for sp in splits:
+                parts.append(self._read_split(conn, sp, columns))
+                if not exact:
+                    rows += parts[-1].num_rows_host()
+                    self._reserve(rows, len(columns), what)
+            whole = device_concat(parts) if len(parts) > 1 else parts[0]
+        whole = whole.to(self.device)
         return Batch({sym: whole.column(col)
                       for sym, col in node.assignments.items()},
                      whole.num_rows)
@@ -304,7 +434,9 @@ class Executor:
                 node.right, node.left, "left",
                 tuple(JoinClause(c.right, c.left) for c in node.criteria),
                 node.filter))
-        pre_built = maybe_stream_join(self, node)
+        streamed, pre_built = maybe_stream_join(self, node)
+        if streamed is not None:
+            return streamed
         left = self.execute(node.left)
         right = (pre_built if pre_built is not None
                  else self.execute(node.right))
@@ -369,10 +501,45 @@ class Executor:
         error instead of a device OOM."""
         limit = int(self.session.get("query_max_memory_per_node"))
         try:
-            reserve_bytes(rows, n_lanes, limit, what)
+            est = reserve_bytes(rows, n_lanes, limit, what)
         except MemoryLimitExceeded as e:
             raise QueryError(str(e), error_name="EXCEEDED_LOCAL_MEMORY_LIMIT"
                              ) from e
+        self._account(est)
+
+    def _reserve_streamed(self, nbytes: int, what: str) -> None:
+        """Reserve a streamed operator's own footprint (build state, the
+        chunks in flight, an output chunk), not the full materialisation
+        that streaming avoids."""
+        limit = int(self.session.get("query_max_memory_per_node"))
+        if nbytes > limit:
+            raise QueryError(
+                f"Query exceeded per-node memory limit of {limit} bytes "
+                f"({what} needs ~{nbytes} bytes even streamed); raise "
+                "query_max_memory_per_node or lower stream_chunk_rows",
+                error_name="EXCEEDED_LOCAL_MEMORY_LIMIT")
+        self._account(int(nbytes))
+
+    def _account(self, est: int) -> None:
+        """Keep the query's peak reservation (its largest single one), and
+        let the scan cache yield to it: where the card cannot hold the
+        reservation, cached lanes are evicted, oldest first, for the
+        difference (the JAX worker's cache-pressure relief, with the card
+        as the worker's budget; the port has no cluster memory pool)."""
+        self.peak_reserved_bytes = max(self.peak_reserved_bytes, est)
+        free = self._free_device_bytes()
+        if free is not None and est > free:
+            evict_cache_pressure(est - free)
+
+    def _free_device_bytes(self) -> Optional[int]:
+        """Bytes the card can still allocate (its free memory as CUDA
+        reports it, and the blocks PyTorch holds unused); None off a
+        card."""
+        if self.device.type != "cuda":
+            return None
+        free, _ = torch.cuda.mem_get_info(self.device)
+        return free + torch.cuda.memory_reserved(self.device) \
+            - torch.cuda.memory_allocated(self.device)
 
     def _oversized_join(self, probe: Batch, build: Batch, start, count,
                         eff, order, total: int, width: int, jt: str,
@@ -646,6 +813,10 @@ def _aggregate(node: AggregationNode, src: Batch,
         out = global_aggregate(src, phys, live=live)
     else:
         return _single_row(src.device)
+    return _apply_post(node, out, post)
+
+
+def _apply_post(node: AggregationNode, out: Batch, post) -> Batch:
     if post:
         cols = dict(out.columns)
         for sym, fn in post.items():
@@ -654,6 +825,50 @@ def _aggregate(node: AggregationNode, src: Batch,
         out = Batch({s: c for s, c in cols.items() if s in keep},
                     out.num_rows)
     return out
+
+
+def make_stream_runners(ex: Executor, chain, node: AggregationNode):
+    """The streaming aggregation's two programs over a Filter/Project
+    chain and an AggregationNode: ``partial`` (one split's partial
+    aggregate, with the aggregates that combine it and the post functions
+    of its lowering) and ``run_full`` (a whole table: partial, combine and
+    post functions in one pass). The filters become a live mask the
+    aggregation consumes (no compaction)."""
+    def partial(b: Batch):
+        cols, live = ex._masked_chain_eval(chain, b)
+        src = Batch(cols, live.sum(dtype=torch.int64))
+        phys, post, extra = _lower_aggregates(node.aggregates, src)
+        if extra:
+            src = Batch({**src.columns, **extra}, src.num_rows)
+        if node.group_keys:
+            out = group_aggregate(src, list(node.group_keys), phys,
+                                  live=live)
+        else:
+            out = _pad_partial(global_aggregate(src, phys, live=live))
+        finals = [AggInput(COMBINABLE_KINDS[a.kind], a.output, None,
+                           a.output) for a in phys]
+        return out, finals, post
+
+    def run_full(b: Batch) -> Batch:
+        out, finals, post = partial(b)
+        return _apply_post(node, _combine(node, out, finals), post)
+
+    return partial, run_full
+
+
+def _combine(node: AggregationNode, parts: Batch,
+             finals: List[AggInput]) -> Batch:
+    """Partials (concatenated) combined into one partial of their
+    groups."""
+    if node.group_keys:
+        return group_aggregate(parts, list(node.group_keys), finals)
+    return _pad_partial(global_aggregate(parts, finals))
+
+
+def _pad_partial(b: Batch) -> Batch:
+    """A one-row global partial padded to capacity 8, so that the
+    partials of every split concatenate alike."""
+    return pad_batch(b, 8)
 
 
 def _single_row(device: torch.device) -> Batch:

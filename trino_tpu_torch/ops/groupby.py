@@ -59,6 +59,12 @@ class AggInput:
     output: str = "agg"
 
 
+# the kind that combines partial results of each kind (streaming
+# aggregation: per-split partials, then one combine over them); the
+# JAX table's bit_and/bit_or are not ported
+COMBINABLE_KINDS = {"sum": "sum", "count": "sum", "count_star": "sum",
+                    "min": "min", "max": "max", "any_value": "any_value"}
+
 # largest packed key domain the packed path takes on (as in the JAX engine)
 FAST_DOMAIN_LIMIT = 64
 

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from .catalog import CatalogManager
 from .config import DeviceLike, resolve_device
@@ -39,6 +39,19 @@ class QueryResult:
     join_sizes: List[Tuple[int, int, int]] = field(default_factory=list)
     # bytes of join output the query wrote to host memory (host spill)
     spill_bytes: int = 0
+    # the query's largest single memory reservation
+    peak_reserved_bytes: int = 0
+    # streamed operators (exec/streamjoin.py): chunks, bytes copied to
+    # the device, copies complete before the compute stream needed them,
+    # the copies' device ms and the compute stream's ms waiting for them
+    # (the last three from CUDA events; 0 on the CPU), and chunks by
+    # operator ("agg", "join", "chain")
+    stream_chunks: int = 0
+    stream_h2d_bytes: int = 0
+    stream_overlapped: int = 0
+    stream_copy_ms: float = 0.0
+    stream_wait_ms: float = 0.0
+    stream_ops: Dict[str, int] = field(default_factory=dict)
 
 
 class LocalQueryRunner:
@@ -97,4 +110,11 @@ class LocalQueryRunner:
         return QueryResult(list(plan.names),
                            [schema[s] for s in plan.symbols],
                            batch.to_pylist(), join_sizes=ex.join_sizes,
-                           spill_bytes=ex.spilled_bytes)
+                           spill_bytes=ex.spilled_bytes,
+                           peak_reserved_bytes=ex.peak_reserved_bytes,
+                           stream_chunks=ex.stream_chunks,
+                           stream_h2d_bytes=ex.stream_h2d_bytes,
+                           stream_overlapped=ex.stream_overlapped,
+                           stream_copy_ms=ex.stream_copy_ms,
+                           stream_wait_ms=ex.stream_wait_ms,
+                           stream_ops=dict(ex.stream_ops))
