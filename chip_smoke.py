@@ -20,6 +20,10 @@ warm runs must return its cold run's rows; at tpcds.sf1 its rows on the
 card must equal the engine's own rows on the CPU; q38 at sf10 must equal
 a numpy count over the connector's lanes, and q64 must return rows (the
 relaxed variant of tests/test_tpcds.py where the spec text is empty).
+The kernel's lines (trino_tpu_torch/bench_grouped_sums.py) time each
+call four ways: ``ms`` back to back as a caller sees it, ``device_ms``
+by CUDA-graph replay, ``host_us`` the wrapper's enqueue, and the
+``index_add_`` yardstick as ``library_ms`` and ``library_device_ms``.
 Each phase prints one JSON line; the line before the last lists the
 kernels, the last line is the result. Any failed phase exits non-zero
 without printing a result, as does a machine without CUDA.
@@ -43,8 +47,6 @@ BIG_RANGE_ORDERS = 4_000_000    # orders per range of the sf100 references
 BIG_PEAK_BYTES = 20 << 30       # the 16 GiB budget plus the 4 GiB scan cache
 DEVICE = torch.device("cuda")
 SUM_REL = 1e-9          # f64 on both sides; only the summation order differs
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM (NVIDIA data sheet)
-FP64_OPS_PER_S = 67e12      # H100 SXM FP64 tensor-core peak (data sheet)
 Q1_COLS = ["l_quantity", "l_extendedprice", "l_discount", "l_tax",
            "l_returnflag", "l_linestatus", "l_shipdate"]
 Q3_L_COLS = ["l_orderkey", "l_extendedprice", "l_discount", "l_shipdate"]
@@ -84,19 +86,6 @@ def emit(phase: str, **fields) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise PhaseFailed(what)
-
-
-def cuda_ms(fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def phase_device():
@@ -672,126 +661,64 @@ def phase_q1_check(rows, tpch_mod, device_mod, cold, warm, launches, peak,
          bit_identical_to_numpy=True)
 
 
-def _q1_lanes(cap: int, nseg: int, seed: int, k: int = 19):
-    """q1-shaped kernel inputs: packed ids (some rows dead or outside the
-    domain) and K = 19 f64 lanes (live, count(*), 7 sums x (value, mask),
-    3 avg counts), from a numpy seed. Another ``k`` gives the combine's
-    shape: a count lane and k - 1 partial sums."""
-    rng = np.random.default_rng(seed)
-    dev = DEVICE
-    gid = torch.from_numpy(
-        rng.integers(0, nseg + 2, cap).astype(np.int32)).to(dev)
-    live = (gid < nseg).to(torch.float64)
-    if k != 19:
-        lanes = [live * torch.from_numpy(
-            rng.integers(1, 1 << 20, cap).astype(np.float64)).to(dev)]
-        lanes += [live * torch.from_numpy(
-            np.round(rng.uniform(0, 1e12, cap), 2)).to(dev)
-            for _ in range(k - 1)]
-        return gid, lanes, [0]
-    qty = torch.from_numpy(rng.integers(1, 51, cap).astype(np.float64)).to(dev)
-    price = torch.from_numpy(
-        np.round(rng.uniform(901, 104950, cap), 2)).to(dev)
-    disc = torch.from_numpy(rng.integers(0, 11, cap) / 100.0).to(dev)
-    one = torch.ones_like(live)
-    values = [qty, price, price * (1 - disc), price * (1 - disc) * 1.04,
-              qty, price, disc]
-    # every lane its own tensor, as in the engine: a lane read twice
-    # would come from L2 and flatter the kernel
-    lanes = [live, one]
-    for v in values:
-        lanes += [v * live, live.clone()]
-    lanes += [live.clone() for _ in range(3)]
-    counts = [0, 1] + [3 + 2 * i for i in range(7)] + [16, 17, 18]
-    return gid, lanes, counts
-
-
-def compare(cg, gid, lanes, nseg, count_idx):
-    """(max abs err, max rel err, bit-identical) of the kernel against the
-    plain version; raises on a count that is not exact."""
-    got = cg.grouped_sums(gid, lanes, nseg)
-    again = cg.grouped_sums(gid, lanes, nseg)
-    want = cg.grouped_sums_plain(gid, lanes, nseg)
-    torch.cuda.synchronize()
-    same = all(torch.equal(a, b) for a, b in zip(got, again))
-    abs_err = rel_err = 0.0
-    for i, (a, w) in enumerate(zip(got, want)):
-        if i in count_idx:
-            check(torch.equal(a, w), f"count lane {i} not exact")
-        d = (a - w).abs()
-        abs_err = max(abs_err, float(d.max()))
-        rel_err = max(rel_err, float((d / w.abs().clamp(min=1e-300))
-                                     .max()))
-    return abs_err, rel_err, same
-
-
-def time_kernel(cg, phase: str, cap: int, k: int, nseg: int,
-                seed: int) -> dict:
-    """grouped_sums at ``cap`` rows, ``k`` lanes and ``nseg`` groups
-    against its plain version and against ``index_add_``; its bound from
-    the bytes it must move and the FP64 additions it must do."""
-    gid, lanes, counts = _q1_lanes(cap, nseg, seed=seed, k=k)
-    k = len(lanes)
-    abs_err, rel_err, same = compare(cg, gid, lanes, nseg, set(counts))
-    check(rel_err <= SUM_REL, f"grouped_sums rel err {rel_err}")
-    check(same, "two grouped_sums launches differ")
-    reps = max(10, min(1000, (1 << 30) // (cap * k * 8)))
-    ms = cuda_ms(lambda: cg.grouped_sums(gid, lanes, nseg), reps)
-    plain_ms = cuda_ms(lambda: cg.grouped_sums_plain(gid, lanes, nseg),
-                       max(3, reps // 10))
-    # yardstick: one PyTorch call computing the same function on the same
-    # inputs laid out as [cap, K] (the layout copy is not timed)
-    stacked = torch.stack(lanes, dim=1)
-    dest = torch.where(gid < nseg, gid, nseg).to(torch.int64)
-    acc = torch.zeros((nseg + 1, k), dtype=torch.float64, device=DEVICE)
-
-    def library():
-        acc.zero_()
-        acc.index_add_(0, dest, stacked)
-    library_ms = cuda_ms(library, max(3, reps // 10))
-    lib_err = float((acc[:nseg].T - torch.stack(
-        cg.grouped_sums_plain(gid, lanes, nseg))).abs().max())
-    del stacked, dest, acc
-    nbytes = k * cap * 8 + cap * 4 + k * nseg * 8
-    ops = k * cap
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP64_OPS_PER_S * 1e3
-    emit(phase, name="grouped_sums", cap=cap, lanes=k, nseg=nseg,
-         max_abs_err=abs_err, max_rel_err=rel_err, bit_identical=same,
-         ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-         library_max_abs_err=lib_err, bytes=nbytes, ops=ops,
-         bound_bytes_ms=bytes_ms, bound_ops_ms=ops_ms, reps=reps)
-    del gid, lanes
-    torch.cuda.empty_cache()
+def time_kernel(bench, cg, phase: str, cap: int, k: int, nseg: int,
+                seed: int, **extra) -> dict:
+    """grouped_sums at ``cap`` rows, ``k`` lanes and ``nseg`` groups held
+    against its plain version (rel 1e-9, counts exact, two launches
+    bit-identical, one launch a call) and timed beside its bound and
+    ``index_add_`` (trino_tpu_torch/bench_grouped_sums.py: ``ms``,
+    ``device_ms``, ``host_us``, ``library_ms``, ``library_device_ms``)."""
+    row = bench.measure(cg, cap, k, nseg, seed)
+    emit(phase, name="grouped_sums", **extra, **row)
+    check(row["max_rel_err"] <= SUM_REL,
+          f"grouped_sums rel err {row['max_rel_err']} at {cap} rows")
+    check(row["bit_identical"], f"two grouped_sums launches differ at "
+          f"{cap} rows")
+    check(row["launches_per_call"] == 1, f"grouped_sums launched "
+          f"{row['launches_per_call']} kernels a call at {cap} rows")
+    keep = ("max_abs_err", "max_rel_err", "ms", "device_ms", "host_us",
+            "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_device_ms", "cap", "lanes", "nseg")
     return dict(name="grouped_sums", route="cuda",
                 source="trino_tpu_torch/csrc/grouped_sums.cu",
                 replaces="trino_tpu/ops/pallas_groupby.py:102",
-                max_abs_err=abs_err, max_rel_err=rel_err, ms=ms,
-                plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                library_ms=library_ms, cap=cap, lanes=k, nseg=nseg)
+                **{key: row[key] for key in keep})
 
 
 def phase_kernel(cg):
     """The kernel at every shape the main paths gave it in their cold
     runs (SHAPES), each held against its plain version and timed with
-    its launches; then its edges. Returns the kernels line's entries."""
+    its launches; at the 2^26-row shape no path gives it (its streaming
+    rate, ``path: none``, not in the kernels line); then its edges.
+    Returns the kernels line's entries."""
+    from trino_tpu_torch import bench_grouped_sums as bench
     check(bool(SHAPES), "no phase launched grouped_sums")
     kernels = []
     for i, (cap, k, nseg) in enumerate(sorted(SHAPES)):
         by_phase = SHAPES[(cap, k, nseg)]
-        entry = time_kernel(cg, "kernel_split", cap, k, nseg, seed=3 + i)
+        entry = time_kernel(bench, cg, "kernel_split", cap, k, nseg,
+                            seed=3 + i, path="q1",
+                            launches=sum(by_phase.values()),
+                            launches_by_phase=by_phase)
         entry["launches"] = sum(by_phase.values())
         entry["launches_by_phase"] = by_phase
         kernels.append(entry)
+    time_kernel(bench, cg, "kernel_split", *bench.STREAM_SHAPE, seed=2,
+                path="none", launches=0)
+    torch.cuda.empty_cache()
 
-    # edges: every row dead; ids past the domain; the widest domain
+    # edges: every row dead; ids past the domain; the widest domain; an
+    # odd number of rows, the pad column of the buffer NaN (never summed)
     rng = np.random.default_rng(2)
     edge_cap = 1 << 20
     dev = DEVICE
-    vals = torch.from_numpy(np.round(rng.uniform(-1e4, 1e4, edge_cap), 2)
-                            ).to(dev)
-    ones = torch.ones(edge_cap, dtype=torch.float64, device=dev)
+    vals = torch.from_numpy(np.round(rng.uniform(-1e4, 1e4, edge_cap + 3),
+                                     2)).to(dev)
+    ones = torch.ones(edge_cap + 3, dtype=torch.float64, device=dev)
+    odd = torch.full((2, edge_cap + 4), float("nan"), dtype=torch.float64,
+                     device=dev)
+    odd[0, :edge_cap + 3] = vals
+    odd[1, :edge_cap + 3] = 1.0
     edges = {
         "all_dead": (torch.full((edge_cap,), 12, dtype=torch.int32,
                                 device=dev), 12),
@@ -799,12 +726,19 @@ def phase_kernel(cg):
             -5, 200, edge_cap).astype(np.int32)).to(dev), 12),
         "nseg_64": (torch.from_numpy(rng.integers(
             0, 64, edge_cap).astype(np.int32)).to(dev), 64),
+        "odd_cap": (torch.from_numpy(rng.integers(
+            0, 14, edge_cap + 3).astype(np.int32)).to(dev), 12),
     }
     for name, (g, ns) in edges.items():
-        e_abs, e_rel, e_same = compare(cg, g, [vals, ones], ns, {1})
-        check(e_rel <= SUM_REL and e_same, f"edge {name}")
-        emit("kernel_edge", case=name, nseg=ns, max_abs_err=e_abs,
-             max_rel_err=e_rel, bit_identical=e_same)
+        cap = int(g.shape[0])
+        lanes = odd if name == "odd_cap" else [vals[:cap], ones[:cap]]
+        e_abs, e_rel, e_same, per_call = bench.compare(cg, g, lanes, ns,
+                                                       {1})
+        check(e_rel <= SUM_REL and e_same and per_call == 1,
+              f"edge {name}")
+        emit("kernel_edge", case=name, cap=cap, nseg=ns, max_abs_err=e_abs,
+             max_rel_err=e_rel, bit_identical=e_same,
+             launches_per_call=per_call)
     return kernels
 
 

@@ -128,6 +128,49 @@ def test_failing_varchar_cast_raises_in_both_engines():
         TpuRunner().execute(sql)
 
 
+
+# ROADMAP C1: doubles out of the int64 range, NaN and infinities cast to
+# integers and short decimals saturate (NaN gives 0), as XLA's conversion
+# does; narrowing to INTEGER wraps the saturated int64, so 1e19 gives -1
+SATURATING_CASTS = {
+    "bigint_out_of_range":
+        "SELECT CAST(x AS BIGINT) FROM (VALUES 1e19, -1e19) t(x)",
+    "bigint_nan_and_infinities":
+        "SELECT CAST(x / y AS BIGINT) FROM (VALUES (0e0, 0e0), (1e0, 0e0), "
+        "(-1e0, 0e0)) t(x, y)",
+    "short_decimal_out_of_range":
+        "SELECT CAST(1.0E20 AS DECIMAL(18,0)), CAST(-1.0E20 AS "
+        "DECIMAL(18,0)), CAST(x / y AS DECIMAL(10,2)) FROM (VALUES "
+        "(0e0, 0e0), (1e0, 0e0), (-1e0, 0e0)) t(x, y)",
+    "integer_wraps_the_saturated_bigint":
+        "SELECT CAST(x AS INTEGER) FROM (VALUES 1e19, -1e19) t(x)",
+    "truncate_of_a_bigint_near_2_63":
+        "SELECT truncate(x) FROM (VALUES 9223372036854775807, "
+        "-9223372036854775807) t(x)",
+}
+
+
+@pytest.mark.parametrize("name", sorted(SATURATING_CASTS))
+def test_out_of_range_double_casts_saturate_as_in_the_jax_engine(name):
+    sql = SATURATING_CASTS[name]
+    got = LocalQueryRunner(device="cpu").execute(sql)
+    want = TpuRunner().execute(sql)
+    assert [str(t) for t in got.types] == [str(t) for t in want.types]
+    assert got.rows == want.rows
+
+
+def test_saturating_cast_values():
+    """The reference's values of ROADMAP C1's table, literally."""
+    run = LocalQueryRunner(device="cpu").execute
+    big, small = 2 ** 63 - 1, -(2 ** 63)
+    assert run(SATURATING_CASTS["bigint_out_of_range"]).rows == \
+        [[big], [small]]
+    assert run(SATURATING_CASTS["bigint_nan_and_infinities"]).rows == \
+        [[0], [big], [small]]
+    assert run(SATURATING_CASTS["integer_wraps_the_saturated_bigint"]
+               ).rows == [[-1], [0]]
+    assert run("SELECT CAST(1.0E20 AS DECIMAL(18,0))").rows[0][0] == big
+
 # (operator, left type, right type, result type): * / % with rescaling
 # up and down, and a / whose shift is negative
 DECIMAL_OPS = [

@@ -38,7 +38,11 @@ def _case(name, rng):
     if name == "nseg_64":
         gid = rng.integers(0, 64, cap).astype(np.int32)
         return gid, [money, np.ones(cap)], 64, {1}
-    # many lanes: more than one launch's worth (64 per launch)
+    if name == "odd_cap":
+        gid = rng.integers(0, 14, cap + 3).astype(np.int32)
+        money = np.round(rng.uniform(900, 105000, cap + 3), 2)
+        return gid, [money, np.ones(cap + 3)], 12, {1}
+    # many lanes: one launch takes them all
     gid = rng.integers(0, 13, cap).astype(np.int32)
     lanes = [money * (k + 1) for k in range(40)] + [np.ones(cap)] * 40
     return gid, lanes, 12, set(range(40, 80))
@@ -46,7 +50,7 @@ def _case(name, rng):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["all_dead", "ids_past_domain", "nseg_64",
-                                  "lanes_80"])
+                                  "lanes_80", "odd_cap"])
 def test_kernel_matches_plain(name, cuda):
     gid, lanes, nseg, counts = _case(name, np.random.default_rng(5))
     g = torch.from_numpy(gid).to(cuda)
@@ -56,7 +60,8 @@ def test_kernel_matches_plain(name, cuda):
     again = cg.grouped_sums(g, ls, nseg)
     want = cg.grouped_sums_plain(g, ls, nseg)
     torch.cuda.synchronize()
-    assert cg.LAUNCHES == before + 2 * -(-len(ls) // 64)
+    # one launch a call, whatever the number of lanes
+    assert cg.LAUNCHES == before + 2
     for i, (a, b, w) in enumerate(zip(got, again, want)):
         assert torch.equal(a, b), i
         if i in counts:
@@ -65,12 +70,127 @@ def test_kernel_matches_plain(name, cuda):
             torch.testing.assert_close(a, w, rtol=SUM_REL, atol=0)
 
 
+
+_BIG, _SMALL = 2 ** 63 - 1, -(2 ** 63)
+# ROADMAP C1's table with the reference's values: out-of-range doubles,
+# NaN and infinities cast to integers and decimals saturate (NaN gives 0)
+SATURATING_SQL = [
+    ("SELECT CAST(x AS BIGINT) FROM (VALUES 1e19, -1e19) t(x)",
+     [[_BIG], [_SMALL]]),
+    ("SELECT CAST(x / y AS BIGINT) FROM (VALUES (0e0, 0e0), (1e0, 0e0), "
+     "(-1e0, 0e0)) t(x, y)", [[0], [_BIG], [_SMALL]]),
+    ("SELECT CAST(1.0E20 AS DECIMAL(18,0))", [[_BIG]]),
+    ("SELECT CAST(1.0E300 AS DECIMAL(38,0)), CAST(-1.0E300 AS "
+     "DECIMAL(38,0))", [[_BIG * 2 ** 64, -_BIG * 2 ** 64]]),
+    ("SELECT CAST(x AS INTEGER) FROM (VALUES 1e19) t(x)", [[-1]]),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("i", range(len(SATURATING_SQL)))
+def test_out_of_range_double_casts_saturate_on_card(cuda, i):
+    sql, want = SATURATING_SQL[i]
+    assert LocalQueryRunner(device=cuda).execute(sql).rows == want
+    assert LocalQueryRunner(device="cpu").execute(sql).rows == want
+
 @pytest.mark.gpu
 def test_kernel_rejects_bad_input(cuda):
     gid = torch.zeros(64, dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError):
         cg.grouped_sums(gid, [torch.ones(64, dtype=torch.float64,
                                          device=cuda)], 4)
+    gid = torch.zeros(64, dtype=torch.int32, device=cuda)
+    flat = torch.ones(130, dtype=torch.float64, device=cuda)
+    for vals in (flat[1:129].view(2, 64),             # not 16-byte aligned
+                 flat[:130].view(2, 65)[:, :64],      # odd row stride
+                 flat[:124].view(2, 62),              # rows too short
+                 flat[:128].view(2, 64).float()):     # float32
+        with pytest.raises(ValueError):
+            cg.grouped_sums(gid, vals, 4)
+
+
+def _q1_buffer(rng, cap, k=19, nseg=12):
+    gid = rng.integers(0, nseg + 2, cap).astype(np.int32)
+    buf = np.full((k, cap + cap % 2), np.nan)
+    buf[:, :cap] = np.round(rng.uniform(900, 105000, (k, cap)), 2)
+    buf[k - 1, :cap] = 1.0
+    return torch.from_numpy(gid), torch.from_numpy(buf)
+
+
+@pytest.mark.gpu
+def test_back_to_back_and_graph_replay_bit_identical(cuda):
+    """Calls of several caps (one block; one group of blocks; 17 groups of
+    blocks, so both ticket levels) run back to back on one stream, inside
+    a captured CUDA graph, and with that graph replayed on a second
+    stream beside direct calls: each result is bit-identical to the same
+    call run alone. Each agrees with the plain version (counts exact)."""
+    rng = np.random.default_rng(9)
+    caps = [32, 2048, 2049, 5000, 17 * 1024, 1 << 17, (1 << 18) + 3,
+            1 << 20]
+    inputs = []
+    for cap in caps:
+        g, b = _q1_buffer(rng, cap)
+        inputs.append((g.to(cuda), b.to(cuda)))
+    alone = []
+    for g, b in inputs:
+        alone.append(cg.grouped_sums(g, b, 12).clone())
+        torch.cuda.synchronize()
+        want = cg.grouped_sums_plain(g, b, 12)
+        assert torch.equal(alone[-1][-1], want[-1])
+        torch.testing.assert_close(alone[-1], want, rtol=SUM_REL, atol=0)
+    before = cg.LAUNCHES
+    again = [cg.grouped_sums(g, b, 12) for g, b in inputs]
+    torch.cuda.synchronize()
+    assert cg.LAUNCHES == before + len(caps)
+    for a, b in zip(again, alone):
+        assert torch.equal(a, b)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        captured = [cg.grouped_sums(g, b, 12) for g, b in inputs]
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(captured, alone):
+            assert torch.equal(a, b)
+    # the graph replayed on another stream while direct calls run on the
+    # stream it was captured on: each call zeroes tickets of its own
+    other = torch.cuda.Stream()
+    for _ in range(4):
+        other.wait_stream(torch.cuda.current_stream())
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(other):
+            graph.replay()
+        with torch.cuda.stream(stream):
+            direct = [cg.grouped_sums(g, b, 12) for g, b in inputs]
+        torch.cuda.synchronize()
+        for a, c, b in zip(captured, direct, alone):
+            assert torch.equal(a, b)
+            assert torch.equal(c, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap", [8, 32, 2048, 2049, 4096, 1 << 17, 1 << 18,
+                                 1 << 20, 1 << 26, 3 << 24])
+def test_partition_covers_rows_in_block_multiples(cuda, cap):
+    """The source's layout at each cap: one block (the result alone)
+    while the rows fit its 1024-row tile, else the result, at most 264
+    blocks' partials, their groups' sums and the tickets; and the launch
+    counts every live row once."""
+    rows = cg.scratch_rows(cap, 19, 12)
+    assert (rows == 19) == (cap <= 1024)
+    assert 19 <= rows <= (1 + 264 + 17) * 19 + 1
+    gid = torch.arange(cap, dtype=torch.int32, device=cuda) % 14
+    buf = torch.ones((2, cap + cap % 2), dtype=torch.float64, device=cuda)
+    buf[1, :cap] = (torch.arange(cap, device=cuda) % 7).to(torch.float64)
+    before = cg.LAUNCHES
+    got = cg.grouped_sums(gid, buf, 12)
+    want = cg.grouped_sums_plain(gid, buf, 12)
+    assert cg.LAUNCHES == before + 1
+    assert tuple(got.shape) == (2, 12)
+    assert torch.equal(got, want)
+    assert int(got[0].sum()) == int((gid < 12).sum())
 
 
 @pytest.mark.gpu

@@ -202,6 +202,36 @@ def test_to_from_double():
     assert _ints(*pi.from_double(d))[:5] == vals[:5]
 
 
+
+# ROADMAP C1: beyond 2^127 the high lane saturates, NaN gives 0
+SATURATED_HI = (2 ** 63 - 1) * 2 ** 64
+
+
+@pytest.mark.parametrize("x,want", [
+    (1e300, SATURATED_HI), (-1e300, -SATURATED_HI),
+    (float("inf"), SATURATED_HI), (float("-inf"), -SATURATED_HI),
+    (float("nan"), 0), (2.0 ** 126, 2 ** 126)])
+def test_from_double_saturates_as_the_jax_engine(x, want):
+    d = torch.tensor([x], dtype=torch.float64)
+    got = pi.from_double(d)
+    _same_lanes(got, ti.from_double(jnp.asarray(d.numpy())))
+    assert _ints(*got) == [want]
+
+
+@pytest.mark.parametrize("sql,want", [
+    ("SELECT CAST(1.0E300 AS DECIMAL(38,0))", SATURATED_HI),
+    ("SELECT CAST(-1.0E300 AS DECIMAL(38,0))", -SATURATED_HI),
+    ("SELECT CAST(x / y AS DECIMAL(38,0)) FROM (VALUES (1e0, 0e0)) t(x, y)",
+     SATURATED_HI),
+    ("SELECT CAST(x / y AS DECIMAL(38,0)) FROM (VALUES (-1e0, 0e0)) "
+     "t(x, y)", -SATURATED_HI),
+    ("SELECT CAST(x / y AS DECIMAL(38,0)) FROM (VALUES (0e0, 0e0)) t(x, y)",
+     0)])
+def test_long_decimal_cast_of_huge_doubles_saturates(sql, want):
+    got = LocalQueryRunner(device="cpu").execute(sql).rows
+    assert got == TpuRunner().execute(sql).rows
+    assert got == [[want]]
+
 def test_div_round_half_up_scaled_single_rounding():
     # 0.29 averaged over 2 rows into a scale one below the sum's rounds
     # once: HALF_UP(29 / 20) = 1 (dividing first would give 2)

@@ -1012,7 +1012,7 @@ def _avg_post(ssym, csym, rtype):
         if isinstance(rtype, DecimalType):
             q = torch.sign(data) * torch.floor(
                 torch.abs(data) * 10.0 ** rtype.scale + 0.5)
-            return Column(rtype, q.to(torch.int64), valid)
+            return Column(rtype, i128.f64_to_i64_saturating(q), valid)
         if rtype is REAL:
             data = data.to(torch.float32)
         return Column(rtype, data, valid)

@@ -358,7 +358,9 @@ def _equal(a: Column, b: Column) -> torch.Tensor:
 # ---- casts ---------------------------------------------------------------
 
 def _round_half_up(x: torch.Tensor) -> torch.Tensor:
-    return (torch.sign(x) * torch.floor(torch.abs(x) + 0.5)).to(_I64)
+    """HALF_UP to int64; out of range saturates and NaN gives 0."""
+    return i128.f64_to_i64_saturating(
+        torch.sign(x) * torch.floor(torch.abs(x) + 0.5))
 
 
 def _div_round_half_up(x: torch.Tensor, q: int) -> torch.Tensor:
@@ -856,8 +858,11 @@ def _floorceil(which):
 def _truncate(e, batch):
     a = eval_expr(e.args[0], batch)
     _no_hi_lane("truncate", a)
-    return Column(a.type, torch.trunc(a.data.to(_F64))
-                  .to(torch_dtype(a.type)), a.valid)
+    data = torch.trunc(a.data.to(_F64))
+    if is_integral(a.type):
+        # a BIGINT near 2^63 rounds to 2^63 as a double
+        data = i128.f64_to_i64_saturating(data)
+    return Column(a.type, data.to(torch_dtype(a.type)), a.valid)
 
 
 def _sign(e, batch):

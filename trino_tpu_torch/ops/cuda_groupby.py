@@ -7,22 +7,32 @@ of K lanes. The kernel is ``csrc/grouped_sums.cu``, compiled for
 ctypes; its header states what bounds it and what the design does about
 that.
 
+The lanes are one f64 [K, ld] buffer (``ld`` the rows rounded up to even,
+so every row is 16-byte aligned), as the TPU kernel takes ``vals [K8,
+cap]``; ``ops/groupby.py`` writes each lane into its row. A list of lanes
+is stacked into such a buffer first. The result is one f64 [K, nseg]
+tensor, a row per lane.
+
 Dispatch: a CPU tensor goes to ``grouped_sums_plain``; a CUDA tensor
-launches the kernel or raises (on a build failure, a launch error, a wrong
-dtype or a non-contiguous input). There is no fallback. ``LAUNCHES``
-counts kernel launches.
+launches the kernel, once a call, or raises (on a build failure, a launch
+error, a wrong dtype, shape, stride or alignment). There is no fallback.
+``LAUNCHES`` counts kernel launches. The host's work a call does not grow
+with K: two tensors checked, one ``torch.empty``, one ctypes call. The
+source owns the call's layout (blocks, scratch, tickets):
+``scratch_rows`` asks it for the size of that one allocation.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Sequence, Union
 
 import torch
 
@@ -38,11 +48,11 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_THREADS = 256          # kThreads in the source
-_MIN_CHUNK = 16 * _THREADS
-_TARGET_CHUNKS = 1024
+_F64 = torch.float64
+Lanes = Union[torch.Tensor, Sequence[torch.Tensor]]
 
-_lib: Optional[ctypes.CDLL] = None
+_launch = None
+_scratch_rows = None
 # how the library was obtained: seconds, and nvcc's register/spill report
 BUILD_INFO: Dict[str, object] = {}
 
@@ -58,11 +68,12 @@ def _nvcc() -> str:
                        "cannot be built")
 
 
-def build() -> ctypes.CDLL:
-    """Compile (once per source content) and load the kernel library."""
-    global _lib
-    if _lib is not None:
-        return _lib
+def build():
+    """Compile (once per source content) and load the kernel library;
+    returns its launch function, with its argument types set."""
+    global _launch, _scratch_rows
+    if _launch is not None:
+        return _launch
     src = SOURCE.read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     so = BUILD_DIR / f"libgrouped_sums-{tag[:16]}.so"
@@ -79,92 +90,130 @@ def build() -> ctypes.CDLL:
             raise RuntimeError(f"nvcc failed for {SOURCE}:\n{log}")
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
-    lib.grouped_sums_launch.argtypes = [
-        ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    lib.grouped_sums_launch.restype = ctypes.c_int
-    lib.grouped_sums_max_lanes.argtypes = []
-    lib.grouped_sums_max_lanes.restype = ctypes.c_int
+    rows = lib.grouped_sums_scratch_rows
+    rows.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+    rows.restype = ctypes.c_longlong
+    fn = lib.grouped_sums_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _scratch_rows = rows
     BUILD_INFO.update(seconds=time.perf_counter() - t0, library=str(so),
                       compiled=bool(log), ptxas=log)
-    _lib = lib
-    return lib
+    _launch = fn
+    return fn
 
 
-def partition(cap: int):
-    """(chunk, P): rows cut into P chunks of ``chunk`` rows, a multiple
-    of the block size; it depends only on ``cap``, so the summation
-    order, and with it every bit of the result, is fixed per shape."""
-    per = -(-cap // _TARGET_CHUNKS)
-    chunk = max(_MIN_CHUNK, -(-per // _THREADS) * _THREADS)
-    return chunk, max(1, -(-cap // chunk))
+@functools.lru_cache(maxsize=4096)
+def scratch_rows(cap: int, k: int, nseg: int) -> int:
+    """Rows of nseg doubles in the one allocation a call of ``cap`` rows
+    and ``k`` lanes takes, as the kernel's source lays it out: the
+    [K, nseg] result first (all of it when the rows fit one block), then
+    the blocks' partials, the groups' sums and the call's tickets."""
+    if _scratch_rows is None:
+        build()
+    return _scratch_rows(cap, k, nseg)
 
 
-def grouped_sums_plain(gid: torch.Tensor, lanes: Sequence[torch.Tensor],
-                       nseg: int) -> List[torch.Tensor]:
+def stack_lanes(lanes: Sequence[torch.Tensor], cap: int) -> torch.Tensor:
+    """A list of [cap] lanes as the kernel's f64 [K, ld] buffer (ld = cap
+    rounded up to even; the pad column is never summed)."""
+    if cap % 2 == 0:
+        return torch.stack(list(lanes))
+    buf = torch.empty((len(lanes), cap + 1), dtype=lanes[0].dtype,
+                      device=lanes[0].device)
+    buf[:, :cap] = torch.stack(list(lanes))
+    return buf
+
+
+def grouped_sums_plain(gid: torch.Tensor, lanes: Lanes,
+                       nseg: int) -> torch.Tensor:
     """Plain PyTorch version: a weighted bincount per lane into nseg + 1
-    slots, the last (rows with an id outside [0, nseg)) dropped."""
+    slots, the last (rows with an id outside [0, nseg)) dropped. Takes
+    the [K, ld] buffer or a list of lanes; returns f64 [K, nseg]."""
+    cap = int(gid.shape[0])
     g = gid.to(torch.int64)
     g = torch.where((g >= 0) & (g < nseg), g, nseg)
-    return [torch.bincount(g, weights=lane.to(torch.float64),
+    sums = [torch.bincount(g, weights=lane[:cap].to(_F64),
                            minlength=nseg + 1)[:nseg] for lane in lanes]
+    if not sums:
+        return torch.zeros((0, nseg), dtype=_F64, device=gid.device)
+    return torch.stack(sums)
 
 
-def _check(gid: torch.Tensor, lanes: Sequence[torch.Tensor], nseg: int):
-    if gid.dim() != 1 or gid.dtype != torch.int32 \
-            or not gid.is_contiguous():
-        raise ValueError("grouped_sums: gid must be a contiguous 1-D "
-                         f"int32 tensor, got {gid.dtype} {tuple(gid.shape)}")
+def _check(gid: torch.Tensor, vals: torch.Tensor, nseg: int) -> None:
+    """What the kernel takes: int32 ids, contiguous, 16-byte aligned; an
+    f64 [K, ld] buffer on the same device, rows contiguous and 16-byte
+    aligned (ld even, at least the rows rounded up to even)."""
+    if gid.dtype != torch.int32 or gid.dim() != 1 \
+            or not gid.is_contiguous() or gid.data_ptr() % 16:
+        raise ValueError("grouped_sums: gid must be a contiguous, 16-byte "
+                         f"aligned 1-D int32 tensor, got {gid.dtype} "
+                         f"{tuple(gid.shape)}")
     if not 1 <= nseg <= MAX_GROUPS:
         raise ValueError(f"grouped_sums: nseg={nseg} outside [1, "
                          f"{MAX_GROUPS}]")
-    for lane in lanes:
-        if lane.device != gid.device or lane.dtype != torch.float64 \
-                or lane.shape != gid.shape or not lane.is_contiguous():
-            raise ValueError(
-                "grouped_sums: every lane must be a contiguous float64 "
-                f"tensor shaped like gid on {gid.device}, got {lane.dtype}"
-                f" {tuple(lane.shape)} on {lane.device}")
+    cap = gid.shape[0]
+    if vals.dim() == 2:
+        k, width = vals.shape
+        row, col = vals.stride()
+        if vals.dtype == _F64 and vals.get_device() == gid.get_device() \
+                and width >= cap + cap % 2 and (width == 1 or col == 1) \
+                and (k < 2 or (row % 2 == 0 and row >= cap)) \
+                and vals.data_ptr() % 16 == 0:
+            return
+    raise ValueError(
+        "grouped_sums: the lanes must be a float64 [K, ld] buffer on "
+        f"{gid.device}, ld >= {cap + cap % 2}, rows contiguous, 16-byte "
+        "aligned and an even number of doubles apart; got "
+        f"{vals.dtype} {tuple(vals.shape)} strides {vals.stride()} on "
+        f"{vals.device}")
 
 
-def grouped_sums(gid: torch.Tensor, lanes: Sequence[torch.Tensor],
-                 nseg: int) -> List[torch.Tensor]:
+def grouped_sums(gid: torch.Tensor, lanes: Lanes,
+                 nseg: int) -> torch.Tensor:
     """Per-group f64 sums for every lane.
 
     ``gid``: int32 [cap] packed group ids; rows whose id is outside
     [0, nseg) contribute to no lane (the caller gives dead rows the id
     nseg). Per-lane exclusion is the caller's job (a zero in the lane).
-    Returns one f64 [nseg] tensor per lane.
+    ``lanes``: the f64 [K, ld] buffer (or a list of [cap] lanes).
+    Returns f64 [K, nseg], a row per lane.
     """
     global LAUNCHES
-    lanes = list(lanes)
-    if gid.device.type == "cpu":
+    if not gid.is_cuda:
         return grouped_sums_plain(gid, lanes, nseg)
-    _check(gid, lanes, nseg)
-    if not lanes:
-        return []
-    lib = build()
-    cap = int(gid.shape[0])
-    chunk, nchunks = partition(cap)
-    step = lib.grouped_sums_max_lanes()
-    outs: List[torch.Tensor] = []
-    with torch.cuda.device(gid.device):
-        stream = torch.cuda.current_stream(gid.device).cuda_stream
-        for start in range(0, len(lanes), step):
-            group = lanes[start:start + step]
-            k = len(group)
-            partial = torch.empty((nchunks, k, nseg), dtype=torch.float64,
-                                  device=gid.device)
-            out = torch.empty((k, nseg), dtype=torch.float64,
-                              device=gid.device)
-            ptrs = (ctypes.c_void_p * k)(*[x.data_ptr() for x in group])
-            rc = lib.grouped_sums_launch(
-                gid.data_ptr(), ptrs, k, cap, chunk, nchunks, nseg,
-                partial.data_ptr(), out.data_ptr(), stream)
-            if rc != 0:
-                raise RuntimeError(
-                    f"grouped_sums kernel launch failed: CUDA error {rc}")
-            LAUNCHES += 1
-            outs.extend(out.unbind(0))
-    return outs
+    cap = gid.shape[0]
+    if isinstance(lanes, torch.Tensor):
+        vals = lanes
+    else:
+        lanes = list(lanes)
+        if not lanes:
+            return torch.zeros((0, nseg), dtype=_F64, device=gid.device)
+        vals = stack_lanes(lanes, cap)
+    _check(gid, vals, nseg)
+    k = vals.shape[0]
+    if k == 0 or cap == 0:
+        return torch.zeros((k, nseg), dtype=_F64, device=gid.device)
+    launch = _launch or build()
+    # one allocation: the result, then the kernel's scratch and tickets
+    rows = scratch_rows(cap, k, nseg)
+    buf = gid.new_empty((rows, nseg), dtype=_F64)
+    index = gid.get_device()
+    # the current stream's handle (what torch.cuda.current_stream(index)
+    # .cuda_stream gives, without making a Stream object each call)
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    args = (gid.data_ptr(), vals.data_ptr(),
+            vals.stride(0) if k > 1 else cap + cap % 2, cap, k, nseg,
+            buf.data_ptr(), rows, stream)
+    if index == torch.cuda.current_device():
+        rc = launch(*args)
+    else:
+        with torch.cuda.device(index):
+            rc = launch(*args)
+    if rc != 0:
+        raise RuntimeError(f"grouped_sums kernel launch failed: CUDA error "
+                           f"{rc}")
+    LAUNCHES += 1
+    return buf if rows == k else buf[:k]

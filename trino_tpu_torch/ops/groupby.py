@@ -394,8 +394,10 @@ def _kernel_packed_aggs(batch: Batch, aggs: Sequence[AggInput],
                         nseg: int):
     """Route float sums and counts through ``grouped_sums``. Returns
     (results by output name as [nseg] Columns, remaining aggs, per-group
-    live counts or None)."""
-    lanes: List[torch.Tensor] = [live.to(_F64)]
+    live counts or None). The lanes are written straight into the
+    kernel's one f64 [K, ld] buffer, a row each: a count lane from its 0/1
+    mask, a sum lane from its values where its mask holds, else 0."""
+    lanes: List = [live]    # a mask, or (mask, values) for a sum
     plans = []          # (agg, kind, value_idx, count_idx, col)
     rest: List[AggInput] = []
     for agg in aggs:
@@ -407,7 +409,7 @@ def _kernel_packed_aggs(batch: Batch, aggs: Sequence[AggInput],
                 if col.valid is not None:
                     m = m & col.valid
             plans.append((agg, "count", len(lanes), None, col))
-            lanes.append(m.to(_F64))
+            lanes.append(m)
             continue
         if agg.kind == "sum":
             col = batch.column(agg.input)
@@ -417,15 +419,24 @@ def _kernel_packed_aggs(batch: Batch, aggs: Sequence[AggInput],
                     m = m & col.valid
                 plans.append((agg, "sum", len(lanes), len(lanes) + 1,
                               col))
-                lanes.append(torch.where(m, col.data.to(_F64), 0.0))
-                lanes.append(m.to(_F64))
+                lanes.append((m, col.data))
+                lanes.append(m)
                 continue
         rest.append(agg)
     if not plans:
         return {}, list(aggs), None
 
+    cap = packed.shape[0]
+    buf = torch.empty((len(lanes), cap + cap % 2), dtype=_F64,
+                      device=packed.device)
+    zero = torch.zeros((), dtype=_F64, device=packed.device)
+    for row, lane in zip(buf[:, :cap], lanes):
+        if isinstance(lane, tuple):
+            torch.where(lane[0], lane[1].to(_F64), zero, out=row)
+        else:
+            row.copy_(lane)
     gid = torch.where(live, packed, nseg).to(torch.int32)
-    outs = cuda_groupby.grouped_sums(gid, lanes, nseg)
+    outs = cuda_groupby.grouped_sums(gid, buf, nseg)
     counts = torch.round(outs[0]).to(_I64)
     results: Dict[str, Column] = {}
     for agg, kind, vi, ci, col in plans:

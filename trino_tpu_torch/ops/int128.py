@@ -266,17 +266,33 @@ def to_double(lo, hi) -> torch.Tensor:
             + lo.to(torch.float64))
 
 
+def f64_to_i64_saturating(x: torch.Tensor) -> torch.Tensor:
+    """float64 -> int64 as XLA converts: NaN to 0, x >= 2^63 to INT64_MAX,
+    x < -2^63 to INT64_MIN, the rest truncated toward zero. A bare
+    ``.to(int64)`` of an out-of-range double is undefined in C++ (INT64_MIN
+    on the CPU). The fix-up is on the integer result: clamping the double
+    first cannot work, since 2^63 - 1 rounds to 2^63 in float64."""
+    big = x >= 2.0 ** 63
+    small = x < -(2.0 ** 63)
+    safe = torch.where(big | small | torch.isnan(x),
+                       torch.zeros_like(x), x).to(_I64)
+    safe = torch.where(big, torch.iinfo(_I64).max, safe)
+    return torch.where(small, torch.iinfo(_I64).min, safe)
+
+
 def from_double(x: torch.Tensor):
     """float64 -> (lo, hi), truncating toward zero beyond float
     precision (float64 has 53 mantissa bits). The divisor 2^64 is a
-    power of two, so its reciprocal is exact."""
+    power of two, so its reciprocal is exact. Beyond 2^127 the high lane
+    saturates and NaN gives 0, as the JAX engine's conversions do."""
     neg = x < 0
     ax = torch.abs(x)
     hi_f = torch.floor(ax * 2.0 ** -64)
     lo_f = ax - hi_f * 2.0 ** 64
-    # lo_f in [0, 2^64): map to two's-complement int64
-    lo = torch.where(lo_f >= 2.0 ** 63, lo_f - 2.0 ** 64, lo_f).to(_I64)
-    hi = hi_f.to(_I64)
+    # lo_f in [0, 2^64) (NaN for inf): map to two's-complement int64
+    lo = f64_to_i64_saturating(
+        torch.where(lo_f >= 2.0 ** 63, lo_f - 2.0 ** 64, lo_f))
+    hi = f64_to_i64_saturating(hi_f)
     nlo, nhi = neg128(lo, hi)
     return torch.where(neg, nlo, lo), torch.where(neg, nhi, hi)
 
