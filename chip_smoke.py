@@ -20,6 +20,14 @@ warm runs must return its cold run's rows; at tpcds.sf1 its rows on the
 card must equal the engine's own rows on the CPU; q38 at sf10 must equal
 a numpy count over the connector's lanes, and q64 must return rows (the
 relaxed variant of tests/test_tpcds.py where the spec text is empty).
+The aggregate phases run at tpch.sf10: the statistical family, checksum
+and the bitwise kinds split by split through grouped_sums against numpy
+over exact sums (``agg_stats``), min_by/max_by and approx_percentile over
+all 60M rows at once against numpy with the first-row tie rule
+(``agg_order``), approx_set/merge/cardinality against a numpy sketch and
+within 3 standard errors of the exact distinct count (``agg_hll``); at
+tpch.sf1 the card's rows of those queries equal the engine's on the CPU
+(``agg_sf1_cpu``).
 The kernel's lines (trino_tpu_torch/bench_grouped_sums.py) time each
 call four ways: ``ms`` back to back as a caller sees it, ``device_ms``
 by CUDA-graph replay, ``host_us`` the wrapper's enqueue, and the
@@ -34,6 +42,7 @@ from __future__ import annotations
 import datetime
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -270,9 +279,29 @@ def stream_fields(result) -> dict:
 
 def free_device() -> None:
     """Collect dead runners (their connectors key the scan cache weakly,
-    so their cached lanes go with them) and return the memory."""
+    so their cached lanes go with them) and return the memory, the
+    cached pinned host blocks (spill, staging) included."""
     gc.collect()
     torch.cuda.empty_cache()
+    empty_host = (getattr(getattr(torch, "accelerator", None),
+                          "empty_host_cache", None)
+                  or getattr(torch._C, "_host_emptyCache", None))
+    if empty_host is not None:
+        empty_host()
+
+
+def host_memory() -> dict:
+    """This process's resident and peak resident bytes and the bytes the
+    machine has available (/proc)."""
+    out = {}
+    for path, keys in (("/proc/self/status", ("VmRSS", "VmHWM")),
+                       ("/proc/meminfo", ("MemAvailable", "MemTotal"))):
+        with open(path) as f:
+            for line in f:
+                key = line.split(":")[0]
+                if key in keys:
+                    out[key] = int(line.split()[1]) * 1024
+    return out
 
 
 def host_lanes(batch, cols):
@@ -697,7 +726,7 @@ def phase_kernel(cg):
     for i, (cap, k, nseg) in enumerate(sorted(SHAPES)):
         by_phase = SHAPES[(cap, k, nseg)]
         entry = time_kernel(bench, cg, "kernel_split", cap, k, nseg,
-                            seed=3 + i, path="q1",
+                            seed=3 + i, path="+".join(sorted(by_phase)),
                             launches=sum(by_phase.values()),
                             launches_by_phase=by_phase)
         entry["launches"] = sum(by_phase.values())
@@ -1132,6 +1161,449 @@ def phases_ds(runner_mod, session_mod, cuda_groupby, int128_mod):
              int128_mod)
 
 
+# ---- the aggregates with scalar results and the HyperLogLog sketches -----
+
+AGG_SCHEMA = "sf10"         # the three aggregate phases
+AGG_CHECK_SCHEMA = "sf1"    # the card against the engine on the CPU
+AGG_WARM_REPS = 2
+AGG_STATS_SQL = (
+    "SELECT l_returnflag, l_linestatus, count(*), "
+    "corr(l_extendedprice, l_quantity), "
+    "covar_samp(l_extendedprice, l_quantity), "
+    "covar_pop(l_extendedprice, l_quantity), "
+    "regr_slope(l_extendedprice, l_quantity), "
+    "regr_intercept(l_extendedprice, l_quantity), "
+    "skewness(l_extendedprice), kurtosis(l_quantity), "
+    "checksum(l_orderkey), bitwise_and_agg(l_orderkey), "
+    "bitwise_or_agg(l_suppkey) "
+    "FROM tpch.{schema}.lineitem GROUP BY 1, 2 ORDER BY 1, 2")
+AGG_STATS_COLS = ["l_returnflag", "l_linestatus", "l_extendedprice",
+                  "l_quantity", "l_orderkey", "l_suppkey"]
+# the doubles of an agg_stats row, by column
+AGG_STATS_DOUBLES = ["corr", "covar_samp", "covar_pop", "regr_slope",
+                     "regr_intercept", "skewness", "kurtosis"]
+AGG_ORDER_SQL = [
+    "SELECT l_returnflag, l_linestatus, "
+    "min_by(l_orderkey, l_extendedprice), "
+    "max_by(l_partkey, l_extendedprice), "
+    "approx_percentile(l_extendedprice, 0.5), "
+    "approx_percentile(l_quantity, 0.9) "
+    "FROM tpch.{schema}.lineitem GROUP BY 1, 2 ORDER BY 1, 2",
+    "SELECT min_by(l_orderkey, l_discount), "
+    "max_by(l_orderkey, l_extendedprice), "
+    "approx_percentile(l_discount, 0.25) "
+    "FROM tpch.{schema}.lineitem WHERE l_shipdate >= DATE '1995-01-01'"]
+AGG_ORDER_COLS = ["l_returnflag", "l_linestatus", "l_orderkey", "l_partkey",
+                  "l_extendedprice", "l_quantity", "l_discount",
+                  "l_shipdate"]
+AGG_HLL_SQL = [
+    "SELECT l_returnflag, cardinality(approx_set(l_partkey)), "
+    "cardinality(approx_set(l_suppkey, 0.01)) "
+    "FROM tpch.{schema}.lineitem GROUP BY 1 ORDER BY 1",
+    "SELECT cardinality(merge(s)) FROM (SELECT l_returnflag, "
+    "approx_set(l_partkey) s FROM tpch.{schema}.lineitem GROUP BY 1) t",
+    "SELECT cardinality(approx_set(l_partkey)) FROM tpch.{schema}.lineitem"]
+AGG_HLL_COLS = ["l_returnflag", "l_partkey", "l_suppkey"]
+AGG_WIRE_SQL = ("SELECT l_returnflag, CAST(approx_set(l_partkey) AS "
+                "varbinary) FROM tpch.{schema}.lineitem GROUP BY 1 "
+                "ORDER BY 1")
+# approx_set's bucket bits: the default, and those of a 0.01 error
+HLL_BITS_DEFAULT, HLL_BITS_001 = 12, 14
+
+
+def agg_lanes(tpch_mod, device_mod, cols):
+    """Whole-table lineitem lanes of AGG_SCHEMA as the card generates
+    them, on the host: (lanes, dictionaries, rows)."""
+    sf = tpch_mod.SCHEMAS[AGG_SCHEMA]
+    return card_lanes(device_mod, "lineitem", cols, sf,
+                      tpch_mod.table_rows("orders", sf))
+
+
+def groups_of(lanes, dicts, keys):
+    """[(key strings, row mask)] of the distinct values of the
+    dictionary columns ``keys``, in the order of their strings."""
+    code = np.zeros(len(lanes[keys[0]]), np.int64)
+    for k in keys:
+        code = code * len(dicts[k]) + lanes[k]
+    out = []
+    for u in np.unique(code):
+        names, rest = [], int(u)
+        for k in reversed(keys):
+            names.insert(0, str(dicts[k][rest % len(dicts[k])]))
+            rest //= len(dicts[k])
+        out.append((names, code == u))
+    return sorted(out, key=lambda g: g[0])
+
+
+def mix64_np(x: np.ndarray) -> np.ndarray:
+    """splitmix64's finalizer over uint64 (the engine's row hash)."""
+    x = x.astype(np.int64).view(np.uint64).copy()
+    x ^= x >> np.uint64(30)
+    x *= np.uint64(0xBF58476D1CE4E5B9)
+    x ^= x >> np.uint64(27)
+    x *= np.uint64(0x94D049BB133111EB)
+    x ^= x >> np.uint64(31)
+    return x
+
+
+def fsum(lane: np.ndarray) -> float:
+    return math.fsum(lane.tolist())
+
+
+def stats_reference(s, n):
+    """The doubles of an agg_stats row from exact sums ``s`` (math.fsum)
+    and the count, by the formulas of the reference's accumulator states,
+    each with the condition number of its last cancelling step."""
+    def cond(*terms):
+        total = sum(terms)
+        return sum(abs(t) for t in terms) / abs(total) if total else \
+            float("inf")
+    nn = float(max(n, 1))
+    co = s["xy"] - s["x"] * s["y"] / nn
+    mxx = s["xx"] - s["x"] * s["x"] / nn
+    myy = s["yy"] - s["y"] * s["y"] / nn
+    c_co = cond(s["xy"], -s["x"] * s["y"] / nn)
+    c_xx = cond(s["xx"], -s["x"] * s["x"] / nn)
+    c_yy = cond(s["yy"], -s["y"] * s["y"] / nn)
+    slope = co / mxx
+    out = {"corr": (co / math.sqrt(mxx * myy), max(c_co, c_xx, c_yy)),
+           "covar_samp": (co / max(nn - 1.0, 1.0), c_co),
+           "covar_pop": (co / nn, c_co),
+           "regr_slope": (slope, max(c_co, c_xx)),
+           "regr_intercept": ((s["y"] - slope * s["x"]) / nn,
+                              max(c_co, c_xx)
+                              * cond(s["y"], -slope * s["x"]))}
+    y1, y2, y3 = s["y"], s["yy"], s["y3"]
+    m2 = y2 - y1 * y1 / nn
+    t3 = (y3, -3.0 * y1 * y2 / nn, 2.0 * (y1 * (y1 * y1)) / (nn * nn))
+    m3 = t3[0] + t3[1] + t3[2]
+    out["skewness"] = (math.sqrt(nn) * m3 / m2 ** 1.5,
+                       max(cond(*t3), cond(y2, -y1 * y1 / nn)))
+    x1, x2, x3, x4 = s["x"], s["xx"], s["x3"], s["x4"]
+    m2 = x2 - x1 * x1 / nn
+    t4 = (x4, -4.0 * x1 * x3 / nn, 6.0 * x1 * x1 * x2 / (nn * nn),
+          -3.0 * ((x1 * x1) * (x1 * x1)) / (nn * (nn * nn)))
+    m4 = t4[0] + t4[1] + t4[2] + t4[3]
+    # Trino's unbiased excess kurtosis over the central sums m2, m4
+    a = nn * (nn + 1.0) * (nn - 1.0) * m4 / ((nn - 2.0) * (nn - 3.0)
+                                             * m2 * m2)
+    b = 3.0 * (nn - 1.0) * (nn - 1.0) / ((nn - 2.0) * (nn - 3.0))
+    out["kurtosis"] = (a - b, max(cond(*t4), cond(x2, -x1 * x1 / nn))
+                       * cond(a, -b))
+    return out
+
+
+def agg_stats_reference(tpch_mod, device_mod):
+    """agg_stats with numpy alone over the card's lanes: exact sums
+    (math.fsum per group and lane) of the lanes the engine forms, the
+    finishers' formulas, checksum and the bitwise kinds in uint64."""
+    lanes, dicts, n_li = agg_lanes(tpch_mod, device_mod, AGG_STATS_COLS)
+    y, x = lanes["l_extendedprice"], lanes["l_quantity"]
+    h = mix64_np(lanes["l_orderkey"])
+    rows, conds = [], []
+    for (flag, status), mask in groups_of(
+            lanes, dicts, ["l_returnflag", "l_linestatus"]):
+        gy, gx = y[mask], x[mask]
+        yy, xx = gy * gy, gx * gx
+        sums = {"y": fsum(gy), "x": fsum(gx), "xy": fsum(gx * gy),
+                "xx": fsum(xx), "yy": fsum(yy), "y3": fsum(gy * yy),
+                "x3": fsum(gx * xx), "x4": fsum(xx * xx)}
+        n = int(mask.sum())
+        ref = stats_reference(sums, n)
+        ck = int(h[mask].sum(dtype=np.uint64).view(np.int64))
+        band = int(np.bitwise_and.reduce(lanes["l_orderkey"][mask]))
+        bor = int(np.bitwise_or.reduce(lanes["l_suppkey"][mask]))
+        rows.append([flag, status, n] + [ref[k][0] for k in AGG_STATS_DOUBLES]
+                    + [ck, band, bor])
+        conds.append({k: ref[k][1] for k in AGG_STATS_DOUBLES})
+    return rows, conds, n_li
+
+
+def stats_errors(got, want, conds):
+    """(every double's rel error and condition number, the exact columns
+    equal, every double within its bound)."""
+    report, exact_ok, close_ok = [], len(got) == len(want), True
+    for g, w, c in zip(got, want, conds):
+        exact_ok &= g[:3] == w[:3] and g[10:] == w[10:]
+        for i, name in enumerate(AGG_STATS_DOUBLES):
+            a, b = g[3 + i], w[3 + i]
+            err = abs(a - b) / abs(b) if b else abs(a - b)
+            close_ok &= isinstance(a, float) and err <= SUM_REL
+            report.append({"group": g[:2], "value": name, "rel_err": err,
+                           "cond": c[name]})
+    return report, exact_ok, close_ok
+
+
+def agg_cold_warm(name, runner, sql, cuda_groupby):
+    """run_timed over ``sql``: (cold result, fields of the phase line,
+    warm rows equal to the cold rows)."""
+    cold, warm, cold_s, warm_s, peak, launches = run_timed(
+        name, runner, sql, cuda_groupby, AGG_WARM_REPS)
+    same = all(w.rows == cold.rows for w in warm)
+    return cold, dict(cold_s=cold_s, warm_s=warm_s, warm_runs=len(warm),
+                      max_memory_allocated=peak,
+                      grouped_sums_launches=launches,
+                      same_rows_every_run=same), same
+
+
+def phase_agg_stats(runner, cuda_groupby, tpch_mod, device_mod):
+    """The statistical family, checksum and the bitwise kinds at
+    tpch.sf10 on the packed GROUP BY, split by split (grouped_sums)."""
+    cache0 = cache_stats()
+    sql = AGG_STATS_SQL.format(schema=AGG_SCHEMA)
+    cold, fields, same = agg_cold_warm("agg_stats", runner, sql,
+                                       cuda_groupby)
+    shapes = sorted(f"{k[0]}x{k[1]}x{k[2]}" for k in _COLD["last"])
+    torch.cuda.empty_cache()
+    want, conds, n_li = agg_stats_reference(tpch_mod, device_mod)
+    report, exact_ok, close_ok = stats_errors(cold.rows, want, conds)
+    emit("agg_stats", schema=f"tpch.{AGG_SCHEMA}", rows=len(cold.rows),
+         lineitem_rows=n_li, warm_rows_per_s=n_li / fields["warm_s"],
+         kernel_shapes=shapes, exact_columns_equal=exact_ok,
+         doubles_within_bound=close_ok, errors=report, result=cold.rows,
+         host=host_memory(), **fields, **cache_delta(cache0))
+    check(fields["grouped_sums_launches"] > 0,
+          "agg_stats did not launch grouped_sums")
+    check(exact_ok, "agg_stats counts, checksums or bitwise results differ "
+          "from numpy")
+    check(close_ok, "agg_stats doubles differ from the exact-sum reference")
+    check(same, "agg_stats rows differ between runs")
+
+
+def first_extreme(values: np.ndarray, idx: np.ndarray, lo: bool):
+    """(row of the first extreme of ``values`` over rows ``idx`` in row
+    order, number of rows at that extreme)."""
+    v = values[idx]
+    ext = v.min() if lo else v.max()
+    at = v == ext
+    return idx[int(np.argmax(at))], int(at.sum())
+
+
+def nearest_rank(values: np.ndarray, q: float) -> float:
+    v = np.sort(values)
+    k = int(np.clip(math.floor(q * (len(v) - 1) + 0.5), 0, len(v) - 1))
+    return float(v[k])
+
+
+def agg_order_reference(tpch_mod, device_mod):
+    """agg_order with numpy alone: the first row (in row order) at each
+    group's extreme, the nearest rank of np.sort per group; the rows that
+    tie at each extreme."""
+    lanes, dicts, n_li = agg_lanes(tpch_mod, device_mod, AGG_ORDER_COLS)
+    price, ties = lanes["l_extendedprice"], []
+    grouped = []
+    for (flag, status), mask in groups_of(
+            lanes, dicts, ["l_returnflag", "l_linestatus"]):
+        idx = np.flatnonzero(mask)
+        lo, t_lo = first_extreme(price, idx, True)
+        hi, t_hi = first_extreme(price, idx, False)
+        ties.append({"group": [flag, status], "min_ties": t_lo,
+                     "max_ties": t_hi})
+        grouped.append([flag, status, int(lanes["l_orderkey"][lo]),
+                        int(lanes["l_partkey"][hi]),
+                        nearest_rank(price[idx], 0.5),
+                        nearest_rank(lanes["l_quantity"][idx], 0.9)])
+    idx = np.flatnonzero(lanes["l_shipdate"] >= days(1995, 1, 1))
+    lo, t_lo = first_extreme(lanes["l_discount"], idx, True)
+    hi, t_hi = first_extreme(price, idx, False)
+    ties.append({"group": "global", "min_ties": t_lo, "max_ties": t_hi})
+    glob = [[int(lanes["l_orderkey"][lo]), int(lanes["l_orderkey"][hi]),
+             nearest_rank(lanes["l_discount"][idx], 0.25)]]
+    return [grouped, glob], ties, n_li
+
+
+def phase_agg_order(runner, cuda_groupby, tpch_mod, device_mod):
+    """min_by/max_by and approx_percentile at tpch.sf10 over all
+    60,007,494 lineitem rows at once: the general GROUP BY and the global
+    path."""
+    results = []
+    for i, template in enumerate(AGG_ORDER_SQL):
+        cache0 = cache_stats()
+        cold, fields, same = agg_cold_warm(
+            "agg_order", runner, template.format(schema=AGG_SCHEMA),
+            cuda_groupby)
+        results.append((cold, dict(fields, **cache_delta(cache0)), same))
+        torch.cuda.empty_cache()
+    want, ties, n_li = agg_order_reference(tpch_mod, device_mod)
+    for i, ((cold, fields, same), w) in enumerate(zip(results, want)):
+        ok = cold.rows == w
+        emit("agg_order", query=i, schema=f"tpch.{AGG_SCHEMA}",
+             rows=len(cold.rows), lineitem_rows=n_li,
+             warm_rows_per_s=n_li / fields["warm_s"],
+             matches_numpy_reference=ok, result=cold.rows, reference=w,
+             ties=ties, host=host_memory(), **fields)
+        check(ok, f"agg_order query {i} differs from numpy")
+        check(same, f"agg_order query {i} rows differ between runs")
+
+
+def clz64_np(w: np.ndarray) -> np.ndarray:
+    """Leading zeros of uint64 values (64 for 0)."""
+    n = np.zeros(w.shape, np.int64)
+    x = w.copy()
+    for k in (32, 16, 8, 4, 2, 1):
+        clear = (x >> np.uint64(64 - k)) == 0
+        n += np.where(clear, k, 0)
+        x = np.where(clear, x << np.uint64(k), x)
+    return np.where(w == 0, 64, n)
+
+
+def hll_reference(values: np.ndarray, gid: np.ndarray, ngroups: int,
+                  b: int):
+    """Dense HLL registers per group in numpy (hash, bucket = top b
+    bits, rank = leading zeros of the rest + 1, per-bucket max), and the
+    estimator with linear counting: (unrounded estimates, registers)."""
+    m = 1 << b
+    h = mix64_np(values)
+    bucket = (h >> np.uint64(64 - b)).astype(np.int64)
+    w = h << np.uint64(b)
+    rank = np.where(w == 0, 64 - b + 1,
+                    np.minimum(clz64_np(w), 64 - b) + 1)
+    regs = np.zeros(ngroups * m, np.int64)
+    np.maximum.at(regs, gid.astype(np.int64) * m + bucket, rank)
+    regs = regs.reshape(ngroups, m)
+    return [hll_estimate(r, b) for r in regs], regs
+
+
+def hll_estimate(regs: np.ndarray, b: int) -> float:
+    m = 1 << b
+    alpha = (0.673 if m == 16 else 0.697 if m == 32
+             else 0.709 if m == 64 else 0.7213 / (1.0 + 1.079 / m))
+    z = math.fsum((2.0 ** -regs.astype(np.float64)).tolist())
+    zeros = int((regs == 0).sum())
+    raw = alpha * m * m / z
+    if raw <= 2.5 * m and zeros > 0:
+        return m * math.log(m / zeros)
+    return raw
+
+
+def hll_matches(got: int, est: float) -> bool:
+    """Equal to the rounded estimate; 1 off only when the estimate lies
+    within 1e-9 (relative) of a .5 rounding edge."""
+    if got == round(est):
+        return True
+    edge = abs(est - math.floor(est) - 0.5) <= 1e-9 * abs(est)
+    return edge and abs(got - est) <= 0.5 + 1e-9 * abs(est)
+
+
+def phase_agg_hll(runner, cuda_groupby, tpch_mod, device_mod):
+    """approx_set and cardinality at tpch.sf10 on the card, grouped and
+    global, and merge of the grouped sketches on the host."""
+    results = []
+    for template in AGG_HLL_SQL:
+        cache0 = cache_stats()
+        cold, fields, same = agg_cold_warm(
+            "agg_hll", runner, template.format(schema=AGG_SCHEMA),
+            cuda_groupby)
+        results.append((cold, dict(fields, **cache_delta(cache0)), same))
+        torch.cuda.empty_cache()
+    lanes, dicts, n_li = agg_lanes(tpch_mod, device_mod, AGG_HLL_COLS)
+    flags, gid = [], np.zeros(n_li, np.int64)
+    for i, ((flag,), mask) in enumerate(groups_of(lanes, dicts,
+                                                  ["l_returnflag"])):
+        flags.append(flag)
+        gid[mask] = i
+    part, supp = lanes["l_partkey"], lanes["l_suppkey"]
+    est_p, regs_p = hll_reference(part, gid, len(flags), HLL_BITS_DEFAULT)
+    est_s, _ = hll_reference(supp, gid, len(flags), HLL_BITS_001)
+    est_all = hll_estimate(regs_p.max(axis=0), HLL_BITS_DEFAULT)
+
+    def exact(values):
+        seen = np.zeros((len(flags), int(values.max()) + 1), bool)
+        seen[gid, values] = True
+        return seen.sum(axis=1), int(seen.any(axis=0).sum())
+    ex_p, ex_all = exact(part)
+    ex_s, _ = exact(supp)
+    (g_cold, g_f, g_same), (m_cold, m_f, m_same), (a_cold, a_f, a_same) = \
+        results
+    checks = []
+    for i, flag in enumerate(flags):
+        row = g_cold.rows[i] if i < len(g_cold.rows) else [None] * 3
+        for got, est, ex, b in ((row[1], est_p[i], ex_p[i],
+                                 HLL_BITS_DEFAULT),
+                                (row[2], est_s[i], ex_s[i], HLL_BITS_001)):
+            checks.append((flag, b, got, est, int(ex)))
+    for got in (m_cold.rows[0][0], a_cold.rows[0][0]):
+        checks.append(("global", HLL_BITS_DEFAULT, got, est_all, ex_all))
+    report, ok_err = [], True
+    ok_est = [r[0] for r in g_cold.rows] == flags
+    for group, b, got, est, ex in checks:
+        sigma = 1.04 / math.sqrt(1 << b)
+        match = got is not None and hll_matches(got, est)
+        within = got is not None and abs(got - ex) <= 3 * sigma * ex
+        ok_est &= match
+        ok_err &= within
+        report.append({"group": group, "bucket_bits": b, "cardinality": got,
+                       "numpy_estimate": est, "exact_distinct": ex,
+                       "rel_err_vs_exact": (got - ex) / ex if got else None,
+                       "three_sigma": 3 * sigma, "equal": match})
+    merge_ok = m_cold.rows == a_cold.rows
+    for name, (cold, fields, same) in zip(("grouped", "merge", "global"),
+                                          results):
+        emit("agg_hll", query=name, schema=f"tpch.{AGG_SCHEMA}",
+             rows=len(cold.rows), lineitem_rows=n_li,
+             warm_rows_per_s=n_li / fields["warm_s"], result=cold.rows,
+             **fields)
+    emit("agg_hll_check", estimates=report, equal_numpy_sketch=ok_est,
+         within_three_sigma=ok_err, merge_equals_global=merge_ok,
+         host=host_memory())
+    check(ok_est, "agg_hll cardinalities differ from the numpy sketch")
+    check(ok_err, "agg_hll cardinalities beyond 3 standard errors")
+    check(merge_ok, "agg_hll merge differs from the global sketch")
+    check(g_same and m_same and a_same, "agg_hll rows differ between runs")
+
+
+def phase_agg_sf1_cpu(runner_mod, session_mod):
+    """The aggregate phases' queries and a sketch cast to varbinary at
+    tpch.sf1 on the card and through the engine on the CPU: integers,
+    sketches and varbinary exact, doubles within rel 1e-9."""
+    def runner(device=None):
+        return runner_mod.LocalQueryRunner(
+            session_mod.Session(catalog="tpch", schema=AGG_CHECK_SCHEMA),
+            device=device)
+    card, cpu = runner(), runner("cpu")
+    sqls = ([AGG_STATS_SQL] + AGG_ORDER_SQL + AGG_HLL_SQL + [AGG_WIRE_SQL])
+    report, ok = [], True
+    for i, template in enumerate(sqls):
+        sql = template.format(schema=AGG_CHECK_SCHEMA)
+        t0 = time.perf_counter()
+        on_card = card.execute(sql).rows
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        on_cpu = cpu.execute(sql).rows
+        cpu_s = time.perf_counter() - t0
+        if i == 0:
+            errs, exact_ok, close_ok = stats_errors(
+                on_card, on_cpu, [{k: None for k in AGG_STATS_DOUBLES}]
+                * len(on_cpu))
+            same = exact_ok and close_ok
+            worst = max((e["rel_err"] for e in errs), default=0.0)
+        else:
+            same = ds_rows_match(on_card, on_cpu)
+            worst = None
+        ok &= same
+        report.append({"query": i, "rows": len(on_cpu), "equal": same,
+                       "worst_double_rel_err": worst, "card_s": card_s,
+                       "cpu_s": cpu_s})
+    emit("agg_sf1_cpu", schema=f"tpch.{AGG_CHECK_SCHEMA}", queries=report,
+         card_equals_cpu=ok, host=host_memory())
+    check(ok, "aggregate rows on the card differ from the CPU at "
+          f"tpch.{AGG_CHECK_SCHEMA}")
+
+
+def phases_agg(runner_mod, session_mod, cuda_groupby, tpch_mod,
+               device_mod):
+    emit("host_memory", before="aggregate phases", **host_memory())
+    runner = runner_mod.LocalQueryRunner(
+        session_mod.Session(catalog="tpch", schema=AGG_SCHEMA))
+    phase_agg_stats(runner, cuda_groupby, tpch_mod, device_mod)
+    phase_agg_order(runner, cuda_groupby, tpch_mod, device_mod)
+    phase_agg_hll(runner, cuda_groupby, tpch_mod, device_mod)
+    del runner
+    free_device()
+    phase_agg_sf1_cpu(runner_mod, session_mod)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1179,6 +1651,9 @@ def main() -> int:
                    device_mod, TPCH_QUERIES)
         free_device()
         phases_ds(runner_mod, session_mod, cuda_groupby, int128_mod)
+        free_device()
+        phases_agg(runner_mod, session_mod, cuda_groupby, tpch_mod,
+                   device_mod)
         free_device()
         kernels = phase_kernel(cuda_groupby)
     except PhaseFailed as e:

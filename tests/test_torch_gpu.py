@@ -663,3 +663,95 @@ def test_whole_table_scan_cache_on_card(cuda):
     assert runner.execute(sql).rows == first
     assert scancache.STATS["table_hit"] > hits
     _rows_close(first, LocalQueryRunner(device="cpu").execute(sql).rows)
+
+
+# ---- the aggregates with scalar results and the HyperLogLog sketches ------
+
+AGG_SQL = [
+    # the statistical family, checksum and bitwise: the packed GROUP BY
+    # (grouped_sums), the general path and the global path
+    "SELECT l_returnflag, l_linestatus, count(*), "
+    "corr(l_extendedprice, l_quantity), covar_samp(l_extendedprice, "
+    "l_quantity), covar_pop(l_extendedprice, l_quantity), "
+    "regr_slope(l_extendedprice, l_quantity), regr_intercept("
+    "l_extendedprice, l_quantity), skewness(l_extendedprice), "
+    "kurtosis(l_quantity), checksum(l_orderkey), "
+    "bitwise_and_agg(l_orderkey), bitwise_or_agg(l_suppkey) "
+    "FROM lineitem GROUP BY 1, 2 ORDER BY 1, 2",
+    "SELECT l_suppkey % 7, corr(l_tax, l_discount), skewness(l_tax), "
+    "checksum(l_comment), bitwise_and_agg(l_partkey + 4096), "
+    "bitwise_or_agg(l_orderkey) FROM lineitem GROUP BY 1 ORDER BY 1",
+    "SELECT kurtosis(l_extendedprice), checksum(l_shipdate), "
+    "bitwise_or_agg(l_partkey), regr_intercept(l_tax, l_discount) "
+    "FROM lineitem WHERE l_quantity > 10",
+    # the order kinds: general and global, ties, NULL comparators
+    "SELECT l_returnflag, l_linestatus, min_by(l_orderkey, l_extendedprice), "
+    "max_by(l_partkey, l_quantity), approx_percentile(l_extendedprice, "
+    "0.5), approx_percentile(l_quantity, 0.9) FROM lineitem "
+    "GROUP BY 1, 2 ORDER BY 1, 2",
+    "SELECT min_by(l_orderkey, l_discount), max_by(l_comment, l_tax), "
+    "approx_percentile(l_discount, 0.25) FROM lineitem "
+    "WHERE l_shipdate >= DATE '1995-01-01'",
+    "SELECT g, min_by(a, b), max_by(a, b) FROM (VALUES (1, 10, 5), "
+    "(2, 11, NULL), (1, 12, 3), (2, 13, 8), (1, 14, 3), (2, 15, 8)) "
+    "t(g, a, b) GROUP BY g ORDER BY g",
+    # the sketches: grouped, global, merge, casts, FILTER
+    "SELECT l_returnflag, cardinality(approx_set(l_partkey)), "
+    "cardinality(approx_set(l_suppkey, 0.01)), "
+    "cardinality(approx_set(l_comment) FILTER (WHERE l_tax > 0.03)) "
+    "FROM lineitem GROUP BY 1 ORDER BY 1",
+    "SELECT cardinality(merge(s)) FROM (SELECT l_returnflag, "
+    "approx_set(l_partkey) s FROM lineitem GROUP BY 1) t",
+    "SELECT cardinality(approx_set(l_partkey)), "
+    "cardinality(approx_set(l_extendedprice)) FROM lineitem",
+    "SELECT l_returnflag, CAST(approx_set(l_partkey) AS varbinary), "
+    "cardinality(CAST(CAST(approx_set(l_suppkey) AS varbinary) AS "
+    "hyperloglog)) FROM lineitem GROUP BY 1 ORDER BY 1",
+    "SELECT TRY_CAST('garbage' AS hyperloglog) IS NULL, "
+    "cardinality(empty_approx_set())",
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("i", range(len(AGG_SQL)))
+def test_aggregate_kinds_on_card_match_cpu(cuda, i):
+    """Each new kind at tpch.tiny: the card's rows against the port's
+    CPU rows; the sketch and statistical rows of a warm run equal the
+    cold run's bit for bit."""
+    card = LocalQueryRunner(device=cuda)
+    cold = card.execute(AGG_SQL[i]).rows
+    _rows_match(cold, LocalQueryRunner(device="cpu").execute(
+        AGG_SQL[i]).rows)
+    assert card.execute(AGG_SQL[i]).rows == cold
+
+
+@pytest.mark.gpu
+def test_spilled_sketch_column_returns_to_the_card(cuda, monkeypatch):
+    """A sketch column of a join output spilled to pinned host memory
+    and brought back to the card gives the unspilled rows."""
+    from trino_tpu_torch.config import CONFIG
+    from trino_tpu_torch.exec import executor as ex_mod
+    sql = ("SELECT o_orderpriority, sum(cardinality(s)), "
+           "cardinality(merge(s)) FROM (SELECT l_orderkey k, "
+           "approx_set(l_partkey) s FROM lineitem GROUP BY 1) t "
+           "JOIN orders ON k = o_orderkey GROUP BY 1 ORDER BY 1")
+    runner = LocalQueryRunner(device=cuda)
+    whole = runner.execute(sql)
+    chunks = []
+    to_host = ex_mod._to_host
+
+    def spy(b, n):
+        out = to_host(b, n)
+        chunks.append(out)
+        return out
+    monkeypatch.setattr(ex_mod, "_to_host", spy)
+    monkeypatch.setattr(CONFIG, "max_batch_rows", 4096)
+    spilled = runner.execute(sql)
+    assert spilled.spill_bytes > 0 and len(chunks) > 1
+    for b in chunks:
+        for col in b.columns.values():
+            if col.elements is not None:
+                assert col.elements.data.device.type == "cpu"
+                assert col.elements.data.is_pinned()
+    assert spilled.rows == whole.rows
+    assert whole.rows == LocalQueryRunner(device="cpu").execute(sql).rows

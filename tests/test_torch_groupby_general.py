@@ -132,7 +132,7 @@ def test_live_mask_overrides_prefix():
 def test_unported_kind_raises():
     _, pb, keys = _inputs("int", 0)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        group_aggregate(pb, keys, [AggInput("bit_and", "i", None, "x")])
+        group_aggregate(pb, keys, [AggInput("array_agg", "i", None, "x")])
 
 
 DISTINCT_AGGS = [("count_distinct", "v", None), ("count_distinct", "i", "m"),

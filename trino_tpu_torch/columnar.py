@@ -6,6 +6,11 @@ Counterpart of ``trino_tpu/columnar.py``, with the same contract:
   (``valid``; None means every live row is non-null), for string types a
   host-side ``StringDictionary`` whose int32 codes are the lane, and for
   DECIMAL(p>18) a high int64 lane (``data2``).
+- A HyperLogLog sketch column is ragged: ``data`` holds each row's start
+  offset into the flat lane of packed int32 entries ``elements`` (a
+  Column of its own, of any length), ``data2`` each row's entry count
+  (ops/hll.py). A row gather moves the offsets and counts; ``elements``
+  is shared untouched.
 - A ``Batch`` is named Columns plus a row count. Lane length
   ("capacity") is a power-of-two bucket >= ``num_rows``; rows past
   ``num_rows`` are masked, never trusted. Capacity stays >= 8.
@@ -169,13 +174,15 @@ def take_clamped(lane: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
 @dataclass(frozen=True)
 class Column:
     """One SQL column: value lane + validity lane (+ dictionary, + hi
-    lane). Rows beyond the owning Batch's num_rows are garbage."""
+    lane, + the flat entries of a sketch column). Rows beyond the owning
+    Batch's num_rows are garbage."""
 
     type: Type
     data: torch.Tensor
     valid: Optional[torch.Tensor] = None
     dictionary: Optional[StringDictionary] = None
     data2: Optional[torch.Tensor] = None
+    elements: Optional["Column"] = None
 
     def __post_init__(self):
         if is_string(self.type) and self.dictionary is None:
@@ -202,12 +209,15 @@ class Column:
             return None if t is None else t.to(device,
                                                non_blocking=non_blocking)
         return replace(self, data=mv(self.data), valid=mv(self.valid),
-                       data2=mv(self.data2))
+                       data2=mv(self.data2),
+                       elements=None if self.elements is None
+                       else self.elements.to(device, non_blocking))
 
     def gather(self, indices: torch.Tensor,
                fill_invalid: Optional[torch.Tensor] = None) -> "Column":
         """Row gather with clamped indices; gathered rows where
-        ``fill_invalid`` is True become NULL (outer-join padding)."""
+        ``fill_invalid`` is True become NULL (outer-join padding). A
+        sketch column's ``elements`` are shared (its offsets moved)."""
         def g(t):
             return None if t is None else take_clamped(t, indices)
         valid = g(self.valid)
@@ -414,6 +424,18 @@ def _decode(c: Column, data: np.ndarray, valid: np.ndarray,
         return [bool(data[i]) if valid[i] else None for i in range(n)]
     if t.name in ("real", "double"):
         return [float(data[i]) if valid[i] else None for i in range(n)]
+    if t.name == "varbinary" and c.dictionary is not None:
+        # a cast sketch: its wire string from the dictionary
+        vals = c.dictionary.values
+        return [str(vals[int(data[i])]) if valid[i] else None
+                for i in range(n)]
+    if t.name == "hyperloglog":
+        # base64 of the engine's dense sketch framing, as a cast to
+        # varbinary renders it (ops/hll.py)
+        from .ops.hll import sketches_to_base64
+        enc = sketches_to_base64(data, hi, c.elements.data.cpu().numpy(),
+                                 t.bucket_bits)
+        return [enc[i] if valid[i] else None for i in range(n)]
     if t.name == "date":
         epoch = _dt.date(1970, 1, 1).toordinal()
         return [_dt.date.fromordinal(int(data[i]) + epoch)

@@ -52,17 +52,21 @@ from ..columnar import (Batch, Column, StringDictionary, batch_from_pylist,
 from ..config import (CONFIG, MemoryLimitExceeded, capacity_for,
                       reserve_bytes)
 from ..ops import compact, int128 as i128, join as join_ops, sort as sort_ops
-from ..ops.groupby import (COMBINABLE_KINDS, AggInput, global_aggregate,
-                           group_aggregate)
+from ..ops.groupby import (COMBINABLE_KINDS, AggInput, _changes, _key_lanes,
+                           global_aggregate, group_aggregate)
+from ..ops.hashing import GOLDEN, hash_column, to_signed_order
+from ..ops.hll import APPROX_SET_BUCKET_BITS, bucket_bits_for_error
 from ..plan.nodes import (Aggregate, AggregationNode, EnforceSingleRowNode,
                           FilterNode, GroupIdNode, JoinClause, JoinNode,
-                          LimitNode, OutputNode, PlanNode, ProjectNode,
-                          SemiJoinNode, SetOpNode, SortNode, TableScanNode,
-                          TopNNode, UnionNode, ValuesNode, WindowNode)
+                          LimitNode, MarkDistinctNode, OutputNode, PlanNode,
+                          ProjectNode, SemiJoinNode, SetOpNode, SortNode,
+                          TableScanNode, TopNNode, UnionNode, ValuesNode,
+                          WindowNode)
 from ..planner.logical import SemiJoinMultiNode
 from ..rex import Call, InputRef, and_all
 from ..session import Session
-from ..types import BIGINT, BOOLEAN, DOUBLE, DecimalType, REAL, is_string
+from ..types import (BIGINT, BOOLEAN, DOUBLE, DecimalType, HyperLogLogType,
+                     REAL, is_string)
 from .expr import EvalError, eval_expr, eval_predicate
 from .scancache import (cache_memory_bytes, col_bytes, evict_cache_pressure,
                         read_split_cached, read_table_cached)
@@ -163,7 +167,8 @@ class Executor:
     def _check_device(self, b: Batch, what: str) -> None:
         dev = self.device
         for name, c in b.columns.items():
-            for t in (c.data, c.valid, c.data2):
+            for t in (c.data, c.valid, c.data2,
+                      None if c.elements is None else c.elements.data):
                 if t is not None and (t.device.type != dev.type or (
                         dev.index is not None
                         and t.device.index != dev.index)):
@@ -211,9 +216,13 @@ class Executor:
     # (or chunk by chunk) and combine the partials, so the scan is never
     # materialised whole
     # ------------------------------------------------------------------
-    # the kind the port lowers whose partials do not combine (a distinct
-    # count); the JAX engine's other such kinds are not ported
-    _NONSTREAMABLE = {"approx_distinct"}
+    # kinds whose partials do not combine with a single-lane segment op:
+    # they need all rows at once (the JAX engine's set)
+    _NONSTREAMABLE = {"min_by", "max_by", "approx_distinct",
+                      "approx_percentile", "array_agg", "map_agg",
+                      "histogram", "approx_most_frequent",
+                      "approx_set", "merge", "map_union", "multimap_agg",
+                      "numeric_histogram", "tdigest_agg", "qdigest_agg"}
 
     def _try_streaming_aggregation(self, node: AggregationNode):
         if any(a.distinct or a.kind in self._NONSTREAMABLE
@@ -369,6 +378,23 @@ class Executor:
 
     def _exec_AggregationNode(self, node: AggregationNode) -> Batch:
         return _aggregate(node, self.execute(node.source), None)
+
+    def _exec_MarkDistinctNode(self, node: MarkDistinctNode) -> Batch:
+        """The input plus a marker lane, true on the first row (in the
+        stable key order) of each distinct key."""
+        src = self.execute(node.source)
+        live = src.row_valid()
+        lanes = _key_lanes(src, list(node.keys), live)
+        order = sort_ops.lexsort([to_signed_order(x) for x in lanes])
+        cap = src.capacity
+        first = torch.arange(cap, device=live.device) == 0
+        boundary = _changes(lanes[1:], order, first) & live[order]
+        marker = torch.zeros(cap, dtype=torch.bool,
+                             device=live.device).index_copy_(0, order,
+                                                             boundary)
+        cols = dict(src.columns)
+        cols[node.marker] = Column(BOOLEAN, marker, None)
+        return Batch(cols, src.num_rows)
 
     def _exec_EnforceSingleRowNode(self, node: EnforceSingleRowNode
                                    ) -> Batch:
@@ -775,7 +801,8 @@ def _null_columns(cols: Dict[str, Column], cap: int,
         return torch.zeros(cap, dtype=dtype, device=device)
     return {s: Column(c.type, zeros(c.data.dtype), zeros(torch.bool),
                       c.dictionary,
-                      None if c.data2 is None else zeros(torch.int64))
+                      None if c.data2 is None else zeros(torch.int64),
+                      c.elements)
             for s, c in cols.items()}
 
 
@@ -877,11 +904,12 @@ def _single_row(device: torch.device) -> Batch:
 
 
 def _lower_aggregates(aggregates: Dict[str, Aggregate], src: Batch):
-    """Map logical aggregates onto the kinds ops/groupby.py computes
-    (sum/count/count_star/min/max/any_value/count_distinct), returning
-    (phys_aggs, post_fns, extra_columns). The decomposition mirrors the
-    reference's accumulator states: avg = LongAndDoubleState, variance =
-    CentralMomentsState."""
+    """Map logical aggregates onto the kinds ops/groupby.py computes,
+    returning (phys_aggs, post_fns, extra_columns). The decomposition
+    mirrors the reference's accumulator states: avg = LongAndDoubleState,
+    variance and the moments = CentralMomentsState, corr/covar/regr =
+    the Covariance, Correlation and Regression states over pairwise sums,
+    checksum = a wrapping int64 sum of row hashes."""
     phys: List[AggInput] = []
     post = {}
     extra: Dict[str, Column] = {}
@@ -932,6 +960,77 @@ def _lower_aggregates(aggregates: Dict[str, Aggregate], src: Batch):
             phys.append(AggInput("sum", lsym, a.mask, ssym))
             phys.append(AggInput("count", lsym, a.mask, csym))
             post[sym] = _geomean_post(ssym, csym)
+        elif kind in ("bitwise_and_agg", "bitwise_or_agg"):
+            phys.append(AggInput(
+                "bit_and" if kind == "bitwise_and_agg" else "bit_or",
+                a.argument, a.mask, sym))
+        elif kind in ("min_by", "max_by"):
+            phys.append(AggInput(
+                "argmin" if kind == "min_by" else "argmax",
+                a.argument, a.mask, sym, input2=a.argument2))
+        elif kind == "approx_set":
+            # the parameter is the requested standard error: a bucket
+            # count exponent, fixed at plan time
+            b = (bucket_bits_for_error(float(a.param))
+                 if a.param is not None else APPROX_SET_BUCKET_BITS)
+            phys.append(AggInput("hll", a.argument, a.mask, sym,
+                                 param=float(b)))
+        elif kind == "merge":
+            argt = src.column(a.argument).type
+            if not isinstance(argt, HyperLogLogType):
+                raise NotImplementedError(
+                    f"not yet ported: aggregate merge({argt})")
+            phys.append(AggInput("hll_merge", a.argument, a.mask, sym))
+        elif kind == "approx_percentile":
+            phys.append(AggInput("percentile", a.argument, a.mask, sym,
+                                 param=a.param))
+        elif kind == "checksum":
+            # an order-independent multiset hash: the wrapping int64 sum
+            # of row hashes (ops/hashing.py), NULL a fixed odd constant
+            arg = src.column(a.argument)
+            h = hash_column(arg.data, arg.valid)
+            if arg.data2 is not None:
+                h = h * 31 + hash_column(arg.data2, arg.valid)
+            if arg.valid is not None:
+                h = torch.where(arg.valid, h, GOLDEN)
+            hsym = sym + "$h"
+            extra[hsym] = Column(BIGINT, h, None)
+            phys.append(AggInput("sum", hsym, a.mask, sym))
+        elif kind in ("corr", "covar_samp", "covar_pop", "regr_slope",
+                      "regr_intercept"):
+            # sums of products over the rows where both sides are valid
+            _, yd, yv = _stat_lane(src, a.argument, extra, sym + "$fy")
+            _, xd, xv = _stat_lane(src, a.argument2, extra, sym + "$fx")
+            pv = yv if xv is None else xv if yv is None else yv & xv
+            lanes = {"y": yd, "x": xd, "xy": xd * yd, "xx": xd * xd}
+            if kind == "corr":
+                lanes["yy"] = yd * yd
+            names = {}
+            for tag, d in lanes.items():
+                extra[f"{sym}${tag}"] = Column(DOUBLE, d, pv)
+                names[tag] = f"{sym}$s{tag}"
+                phys.append(AggInput("sum", f"{sym}${tag}", a.mask,
+                                     names[tag]))
+            csym = sym + "$n"
+            phys.append(AggInput("count", f"{sym}$x", a.mask, csym))
+            post[sym] = _bivariate_post(kind, names, csym)
+        elif kind in ("skewness", "kurtosis"):
+            bsym, d, bvalid = _stat_lane(src, a.argument, extra, sym + "$f")
+            # the powers as the reference's XLA integer_pow forms them
+            p2 = d * d
+            powers = {"2": p2, "3": d * p2}
+            if kind == "kurtosis":
+                powers["4"] = p2 * p2
+            names = {}
+            for tag, pw in powers.items():
+                extra[f"{sym}$p{tag}"] = Column(DOUBLE, pw, bvalid)
+                names[tag] = f"{sym}$s{tag}"
+                phys.append(AggInput("sum", f"{sym}$p{tag}", a.mask,
+                                     names[tag]))
+            ssym, csym = sym + "$s1", sym + "$n"
+            phys.append(AggInput("sum", bsym, a.mask, ssym))
+            phys.append(AggInput("count", bsym, a.mask, csym))
+            post[sym] = _moments_post(kind, ssym, names, csym)
         else:
             raise NotImplementedError(f"not yet ported: aggregate {kind}")
     return phys, post, extra
@@ -970,6 +1069,70 @@ def _variance_post(ssym, csym, s2sym, pop: bool, sqrt: bool):
                         min=0.0)
         return Column(DOUBLE, torch.sqrt(v) if sqrt else v,
                       n > (0.0 if pop else 1.0))
+    return fn
+
+
+def _bivariate_post(kind: str, s: Dict[str, str], csym: str):
+    """corr/covar/regr from the pairwise sums, with the formulas of the
+    reference's accumulator states (CovarianceState and others)."""
+    def fn(out: Batch) -> Column:
+        n = _f64(out, csym)
+        sy, sx = _f64(out, s["y"]), _f64(out, s["x"])
+        sxy, sxx = _f64(out, s["xy"]), _f64(out, s["xx"])
+        one = torch.ones_like(n)
+        nn = torch.clamp(n, min=1.0)
+        co = sxy - sx * sy / nn          # n * cov_pop
+        mxx = sxx - sx * sx / nn         # n * var_pop(x)
+        if kind == "covar_pop":
+            data, valid = co / nn, n > 0
+        elif kind == "covar_samp":
+            data, valid = co / torch.clamp(n - 1.0, min=1.0), n > 1
+        elif kind == "corr":
+            syy = _f64(out, s["yy"])
+            myy = syy - sy * sy / nn
+            denom = torch.sqrt(mxx * myy)
+            data = co / torch.where(denom > 0.0, denom, one)
+            valid = (n > 1) & (denom > 0.0)
+        else:
+            slope = co / torch.where(mxx > 0.0, mxx, one)
+            data = slope if kind == "regr_slope" else \
+                (sy - slope * sx) / nn
+            valid = (n > 0) & (mxx > 0.0)
+        return Column(DOUBLE, data, valid)
+    return fn
+
+
+def _moments_post(kind: str, ssym: str, s: Dict[str, str], csym: str):
+    """skewness/kurtosis from raw power sums through the central moments
+    m_k = sum((x - mean)^k) (the reference's CentralMomentsState); x ** k
+    is written as the products the JAX engine's integer powers form.
+    skewness = sqrt(n) m3 / m2^1.5; kurtosis = n (n+1) (n-1) m4 /
+    ((n-2) (n-3) m2^2) - 3 (n-1)^2 / ((n-2) (n-3)), Trino's unbiased
+    excess kurtosis (AggregationUtils.getKurtosis; the JAX engine has n
+    where (n-1)^2 belongs, ROADMAP C)."""
+    def fn(out: Batch) -> Column:
+        n = _f64(out, csym)
+        s1, s2, s3 = _f64(out, ssym), _f64(out, s["2"]), _f64(out, s["3"])
+        one = torch.ones_like(n)
+        nn = torch.clamp(n, min=1.0)
+        nn2 = nn * nn
+        s1p2 = s1 * s1
+        m2 = s2 - s1p2 / nn
+        m3 = s3 - 3.0 * s1 * s2 / nn + 2.0 * (s1 * s1p2) / nn2
+        m2s = torch.where(m2 > 0.0, m2, one)
+        if kind == "skewness":
+            data = torch.sqrt(nn) * m3 / m2s ** 1.5
+            valid = (n > 2) & (m2 > 0.0)
+        else:
+            s4 = _f64(out, s["4"])
+            m4 = (s4 - 4.0 * s1 * s3 / nn + 6.0 * s1 * s1 * s2 / nn2
+                  - 3.0 * (s1p2 * s1p2) / (nn * nn2))
+            n1 = nn - 1.0
+            d23 = torch.clamp((nn - 2.0) * (nn - 3.0), min=1.0)
+            data = (nn * (nn + 1.0) * n1 * m4 / (d23 * m2s * m2s)
+                    - 3.0 * (n1 * n1) / d23)
+            valid = (n > 3) & (m2 > 0.0)
+        return Column(DOUBLE, data, valid)
     return fn
 
 
@@ -1062,8 +1225,16 @@ def device_concat(parts: Sequence[Batch]) -> Batch:
         if any(c.data2 is not None for c in cs):
             data2 = _cat_into([_hi_lane_or_fill(c, d)[:n] for c, d, n in
                                zip(cs, datas, counts)], cap, pin)
+        elements = None
+        if first.elements is not None:
+            # sketch columns: the parts' entry lanes one after another,
+            # each part's offsets moved past the lanes before it
+            lanes = [c.elements.data for c in cs]
+            base = np.cumsum([0] + [x.shape[0] for x in lanes[:-1]])
+            datas = [d + int(o) for d, o in zip(datas, base)]
+            elements = dc_replace(first.elements, data=torch.cat(lanes))
         cols[name] = Column(first.type, _cat_into(datas, cap, pin), valid,
-                            dic, data2)
+                            dic, data2, elements)
     return Batch(cols, total, spilled=spilled)
 
 
@@ -1099,12 +1270,17 @@ def _to_host(b: Batch, n: int) -> Batch:
     an asynchronous copy."""
     pin = b.device.type == "cuda"
 
-    def host(t):
+    def host(t, rows=n):
         if t is None:
             return None
-        out = torch.empty(n, dtype=t.dtype, pin_memory=pin)
-        return out.copy_(t[:n])
+        out = torch.empty(rows, dtype=t.dtype, pin_memory=pin)
+        return out.copy_(t[:rows])
+
+    def host_elements(e):
+        # a sketch column's entries are shared by its rows: copied whole
+        return None if e is None else dc_replace(
+            e, data=host(e.data, e.data.shape[0]))
     cols = {s: Column(c.type, host(c.data), host(c.valid), c.dictionary,
-                      host(c.data2))
+                      host(c.data2), host_elements(c.elements))
             for s, c in b.columns.items()}
     return Batch(cols, n, spilled=True)

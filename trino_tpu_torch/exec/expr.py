@@ -37,6 +37,7 @@ element, so it costs no memory at any capacity.
 
 from __future__ import annotations
 
+import base64
 import datetime
 import re
 from dataclasses import replace as dc_replace
@@ -47,12 +48,14 @@ import torch
 
 from ..columnar import Batch, Column, StringDictionary, take_clamped, \
     torch_dtype
+from ..config import capacity_for
+from ..ops import hll
 from ..ops import int128 as i128
 from ..ops.datetime import add_months, extract_field
 from ..rex import Call, CaseExpr, Cast, Const, InputRef, RowExpr
-from ..types import (BIGINT, BOOLEAN, DATE, DOUBLE, UNKNOWN, VARCHAR,
-                     CharType, DecimalType, IntervalYearMonth, Type,
-                     is_integral, is_string)
+from ..types import (BIGINT, BOOLEAN, DATE, DOUBLE, INTEGER, UNKNOWN,
+                     VARCHAR, CharType, DecimalType, HyperLogLogType,
+                     IntervalYearMonth, Type, is_integral, is_string)
 
 _F64 = torch.float64
 _I64 = torch.int64
@@ -102,6 +105,10 @@ def const_column(e: Const, cap: int, device: torch.device) -> Column:
     t = e.type
     if e.value is None:
         invalid = _full(False, cap, torch.bool, device)
+        if isinstance(t, HyperLogLogType):
+            return _sketches(t, _full(0, cap, _I64, device), invalid,
+                             _full(0, cap, _I64, device),
+                             hll.empty_sketch_lane(device))
         if is_string(t):
             d, _ = StringDictionary.from_strings([])
             return Column(t, _full(0, cap, torch.int32, device), invalid, d)
@@ -384,6 +391,10 @@ def cast_column(src: Column, t: Type, safe: bool = False) -> Column:
         return const_column(Const(None, t), src.capacity, src.device)
     if is_string(s) and is_string(t):
         return dc_replace(src, type=t)
+    if isinstance(s, HyperLogLogType) and _stringy(t):
+        return _sketch_to_wire(src, t)
+    if isinstance(t, HyperLogLogType) and _stringy(s):
+        return _sketch_from_wire(src, t, safe)
     if is_string(s):
         if _long(t):
             return _parse_long_decimal(src, t, safe)
@@ -455,6 +466,85 @@ def cast_column(src: Column, t: Type, safe: bool = False) -> Column:
     if t is BOOLEAN:
         return Column(t, d.to(torch.bool), src.valid)
     raise NotYetPorted(f"not yet ported: cast {s} -> {t}")
+
+
+def _stringy(t: Type) -> bool:
+    return is_string(t) or t.name == "varbinary"
+
+
+def _sketches(t: HyperLogLogType, starts, valid, lens,
+              entries: torch.Tensor) -> Column:
+    """A sketch column: offsets, validity, entry counts, flat entries."""
+    return Column(t, starts, valid, None, lens, Column(INTEGER, entries))
+
+
+def _sketch_to_wire(src: Column, t: Type) -> Column:
+    """CAST(hll AS varbinary/varchar): the base64 of the engine's dense
+    framing (ops/hll.py, shared with the result rows), as a dictionary
+    column. The distinct (start, count) spans are found on the device and
+    encoded once each on the host, in the order of their first row, so
+    that the codes are those of a dictionary built row by row."""
+    b = src.type.bucket_bits
+    dev = src.device
+    # a span as its readers clip it, as one key: start * (m + 1) + count
+    m1 = (1 << b) + 1
+    key = (src.data.to(_I64).clamp(0, src.elements.data.shape[0]) * m1
+           + src.data2.to(_I64).clamp(0, m1 - 1))
+    keys, inverse = torch.unique(key, return_inverse=True)
+    rows = torch.arange(inverse.shape[0], device=dev)
+    first = torch.full((keys.shape[0],), inverse.shape[0],
+                       dtype=_I64, device=dev).scatter_reduce_(
+        0, inverse, rows, "amin")
+    by_first = torch.argsort(first)
+    keys = keys[by_first]
+    rank = torch.empty_like(by_first)
+    rank[by_first] = torch.arange(by_first.shape[0], device=dev)
+    starts, lens = keys // m1, keys % m1
+    out = hll.sketches_to_base64(
+        starts.cpu().numpy(), lens.cpu().numpy(),
+        hll.entries_prefix(starts, lens, src.elements.data, b), b)
+    dct, codes = StringDictionary.from_strings(out)
+    return Column(t, take_clamped(torch.from_numpy(codes).to(dev),
+                                  rank[inverse]), src.valid, dct)
+
+
+def _sketch_from_wire(src: Column, t: HyperLogLogType,
+                      safe: bool) -> Column:
+    """CAST(varbinary/varchar AS hyperloglog), once per dictionary value
+    on the host; under TRY_CAST a malformed value is NULL."""
+    pool, bits, bad = [], [], np.zeros(len(src.dictionary.values), bool)
+    for i, v in enumerate(src.dictionary.values):
+        try:
+            regs = hll.deserialize_registers(base64.b64decode(v))
+        except (ValueError, IndexError) as ex:   # incl. binascii.Error
+            if not safe:
+                raise EvalError(f"cannot cast to hyperloglog: {ex}")
+            pool.append(np.zeros((0,), np.int32))
+            bad[i] = True
+            continue
+        pool.append(hll.entries_from_dense(regs))
+        bits.append(int(regs.shape[0]).bit_length() - 1)
+    real_b = sorted(set(bits))
+    if len(real_b) > 1:
+        raise EvalError("cannot cast a column mixing HyperLogLog "
+                        f"precisions (bucket bits {real_b})")
+    lens = np.asarray([p.shape[0] for p in pool], np.int64)
+    offs = np.cumsum(lens) - lens
+    flat = np.concatenate(pool) if pool else np.zeros((0,), np.int32)
+    flat = np.pad(flat, (0, capacity_for(max(flat.shape[0], 1))
+                         - flat.shape[0]))
+    dev = src.device
+    codes = src.data
+    valid = src.valid
+    if bad.any():
+        ok = take_clamped(torch.from_numpy(~bad).to(dev), codes)
+        valid = ok if valid is None else valid & ok
+    if real_b:
+        t = HyperLogLogType(real_b[0])
+    return _sketches(t, take_clamped(torch.from_numpy(offs).to(dev), codes),
+                     valid,
+                     take_clamped(torch.from_numpy(lens).to(dev), codes),
+                     torch.from_numpy(flat).to(dev))
 
 
 def _parser_for(t: Type, safe: bool):
@@ -1090,6 +1180,28 @@ def _extract(field: str):
     return h
 
 
+# ---- HyperLogLog -----------------------------------------------------------
+
+def _cardinality(e, batch):
+    """cardinality(hll): the HLL estimate of each row's sketch."""
+    a = eval_expr(e.args[0], batch)
+    if not isinstance(a.type, HyperLogLogType):
+        raise NotYetPorted(f"not yet ported: cardinality of {a.type}")
+    est = hll.estimate_from_sparse(a.data, a.data2, a.elements.data,
+                                   a.type.bucket_bits)
+    return Column(BIGINT, est, a.valid)
+
+
+def _empty_approx_set(e, batch):
+    """A sketch with no entries on every row, with approx_set's default
+    bucket count, so that it merges with approx_set(x) sketches."""
+    cap, dev = batch.capacity, batch.device
+    return _sketches(HyperLogLogType(hll.APPROX_SET_BUCKET_BITS),
+                     torch.zeros(cap, dtype=_I64, device=dev), None,
+                     torch.zeros(cap, dtype=_I64, device=dev),
+                     hll.empty_sketch_lane(dev))
+
+
 _DISPATCH: Dict[str, Callable] = {
     "and": _and, "or": _or, "not": _not, "is_null": _is_null,
     "is_distinct_from": _is_distinct_from,
@@ -1136,4 +1248,5 @@ _DISPATCH: Dict[str, Callable] = {
     "day": _extract("day"), "day_of_month": _extract("day"),
     "day_of_week": _extract("day_of_week"), "dow": _extract("day_of_week"),
     "day_of_year": _extract("day_of_year"), "doy": _extract("day_of_year"),
+    "cardinality": _cardinality, "empty_approx_set": _empty_approx_set,
 }

@@ -89,7 +89,9 @@ def aggregate_result_type(name: str, arg_types: Sequence[Type]) -> Type:
         # declared bits match the runtime sketch (ops/hll.py
         # APPROX_SET_BUCKET_BITS); an explicit max-error argument
         # re-types the aggregate at plan time (planner/logical.py)
-        raise FunctionResolutionError("not yet ported: approx_set")
+        from .types import HyperLogLogType
+        from .ops.hll import APPROX_SET_BUCKET_BITS
+        return HyperLogLogType(APPROX_SET_BUCKET_BITS)
     if name == "merge":
         # merge() combines sketch values — result type follows the
         # input (HLL, tdigest or qdigest, like the reference)
@@ -432,7 +434,9 @@ _SCALARS: Dict[str, Callable[[str, Sequence[Type]], Type]] = {
 def _hll_type():
     # matches approx_set's default bucket count so empty_approx_set()
     # merges with approx_set(x) sketches (APPROX_SET_BUCKET_BITS)
-    raise FunctionResolutionError("not yet ported: empty_approx_set")
+    from .types import HyperLogLogType
+    from .ops.hll import APPROX_SET_BUCKET_BITS
+    return HyperLogLogType(APPROX_SET_BUCKET_BITS)
 
 
 def _array_elem(name, args):

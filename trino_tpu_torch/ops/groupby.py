@@ -16,7 +16,14 @@ Counterpart of ``trino_tpu/ops/groupby.py``, with its two paths:
   two runs give bit-identical sums; integer sums, counts, min and max
   may use any scatter. count(DISTINCT) re-sorts the rows by (keys,
   value) and counts the value changes inside each group (``_resort``);
-  both sorts lead with the key lanes, so group ids stay aligned.
+  both sorts lead with the key lanes, so group ids stay aligned. So does
+  approx_percentile, which takes the nearest-rank row of each group's
+  sorted non-NULL values. min_by/max_by (argmin/argmax) take two passes:
+  the extreme comparator, then the first row in the group-sorted order
+  that attains it. The bitwise aggregates are a segmented scan by
+  doubling over group-sorted rows (``_bit_reduce``). approx_set (hll)
+  builds sparse sketches with one more sort (ops/hll.py); merge(hll)
+  unions them on the host, as the JAX engine does.
 
 Decimals over 18 digits carry a high lane; they group by both lanes,
 and sum/min/max over them (or a sum of short decimals that could pass
@@ -38,11 +45,14 @@ import torch
 
 from ..columnar import Batch, Column, take_clamped
 from ..config import capacity_for
-from ..types import BIGINT, DOUBLE, REAL, DecimalType, Type, is_string
+from ..types import (BIGINT, DOUBLE, INTEGER, REAL, DecimalType,
+                     HyperLogLogType, Type, is_string)
 from . import cuda_groupby
 from . import int128 as i128
 from .compact import mask_to_gather
 from .hashing import equality_lanes, to_signed_order
+from .hll import (DEFAULT_BUCKET_BITS, entries_prefix, grouped_sparse_hll,
+                  merge_sparse_host)
 from .sort import lexsort
 
 _F64 = torch.float64
@@ -53,24 +63,31 @@ _I64 = torch.int64
 class AggInput:
     """One aggregate over one input lane (or none, for count(*))."""
     kind: str          # sum | count | count_star | min | max | any_value
-    #                    | count_distinct
+    #                    | bit_and | bit_or | count_distinct | argmin
+    #                    | argmax | percentile | hll | hll_merge
     input: Optional[str] = None   # column name; None for count_star
     mask: Optional[str] = None    # FILTER / mask column (boolean), optional
     output: str = "agg"
+    param: Optional[float] = None  # percentile fraction; hll bucket bits
+    input2: Optional[str] = None   # comparator lane of argmin/argmax
 
 
 # the kind that combines partial results of each kind (streaming
 # aggregation: per-split partials, then one combine over them); the
-# JAX table's bit_and/bit_or are not ported
+# other kinds need all rows of a group at once
 COMBINABLE_KINDS = {"sum": "sum", "count": "sum", "count_star": "sum",
-                    "min": "min", "max": "max", "any_value": "any_value"}
+                    "min": "min", "max": "max", "any_value": "any_value",
+                    "bit_and": "bit_and", "bit_or": "bit_or"}
 
 # largest packed key domain the packed path takes on (as in the JAX engine)
 FAST_DOMAIN_LIMIT = 64
 
-_FAST_KINDS = {"sum", "count", "count_star", "min", "max", "any_value"}
+_BIT_KINDS = {"bit_and", "bit_or"}
+_FAST_KINDS = {"sum", "count", "count_star", "min", "max",
+               "any_value"} | _BIT_KINDS
 # kinds of the general (lexsort) path and of global_aggregate
-_GENERAL_KINDS = _FAST_KINDS | {"count_distinct"}
+_GENERAL_KINDS = _FAST_KINDS | {"count_distinct", "argmin", "argmax",
+                                "percentile", "hll", "hll_merge"}
 
 
 def _sum_type(t: Type) -> Type:
@@ -220,11 +237,21 @@ def _segment_agg(batch: Batch, agg: AggInput, seg: _Segments) -> Column:
     col = batch.column(agg.input)
     if agg.kind == "count_distinct":
         return _count_distinct(batch, agg, col, seg)
+    if agg.kind == "percentile":
+        return _percentile(batch, agg, col, seg)
+    if agg.kind in ("argmin", "argmax"):
+        return _arg_extreme(batch, agg, col, mask, seg)
     valid = mask if col.valid is None else mask & col.valid[order]
     nvalid = seg.count(valid)
     if agg.kind == "count":
         return Column(BIGINT, nvalid, None)
     group_valid = nvalid > 0
+    if agg.kind == "hll":
+        return _hll(col.data[order], valid, seg.gid, seg.gcap, agg,
+                    group_valid)
+    if agg.kind == "hll_merge":
+        return _hll_merge(col, col.data[order], col.data2[order], valid,
+                          seg.gid, seg.gcap, group_valid)
     if _wide_decimal_agg(col, agg.kind):
         lo, hi = _int128_lanes(col, order)
         return _int128_agg(col, agg.kind, lo, hi, group_valid,
@@ -246,6 +273,11 @@ def _segment_agg(batch: Batch, agg: AggInput, seg: _Segments) -> Column:
         return _min_max(col, vals, agg.kind, group_valid,
                         lambda work, ident: seg.reduce(
                             torch.where(valid, work, ident), how, ident))
+
+    if agg.kind in _BIT_KINDS:
+        work = torch.where(valid, vals.to(_I64), _bit_ident(agg.kind))
+        return Column(BIGINT, _bit_reduce(work, seg.gid, seg.gcap, agg.kind,
+                                          sorted_ids=True), group_valid)
 
     # any_value: the first valid row of each group
     cap = order.shape[0]
@@ -283,12 +315,13 @@ def _changes(lanes: Sequence[torch.Tensor], order: torch.Tensor,
 
 def _resort(key_lanes, tie_lanes, live: torch.Tensor, gcap: int):
     """Re-sort rows by (key lanes, tie lanes) and recompute group ids.
-    Group ids stay aligned with the primary sort of group_aggregate
-    because both orders sort by the key lanes first. Returns (order2,
-    gid2, key_changed, is_first)."""
+    The key lanes are u64 patterns; the tie lanes sort in their own
+    (signed or float) order. Group ids stay aligned with the primary
+    sort of group_aggregate because both orders sort by the key lanes
+    first. Returns (order2, gid2, key_changed, is_first)."""
     cap = live.shape[0]
-    full = list(key_lanes) + list(tie_lanes)
-    order2 = lexsort([to_signed_order(x) for x in full])
+    order2 = lexsort([to_signed_order(x) for x in key_lanes]
+                     + list(tie_lanes))
     first = torch.arange(cap, device=live.device) == 0
     changed = _changes(key_lanes[1:], order2,
                        torch.zeros(cap, dtype=torch.bool,
@@ -303,11 +336,161 @@ def _count_distinct(batch: Batch, agg: AggInput, col: Column,
     """Exact count(DISTINCT) per group: re-sort by (keys, value), then
     count the rows that start a new value inside their group."""
     valid_u, tie = _distinct_lanes(batch, agg, col, seg.live)
-    order2, gid2, changed_k, first = _resort(seg.key_lanes, tie, seg.live,
-                                             seg.gcap)
+    order2, gid2, changed_k, first = _resort(
+        seg.key_lanes, [to_signed_order(x) for x in tie], seg.live,
+        seg.gcap)
     newval = _changes(tie, order2, changed_k | first) & valid_u[order2]
     data = torch.zeros(seg.gcap, dtype=_I64, device=newval.device)
     return Column(BIGINT, data.index_add_(0, gid2, newval.to(_I64)), None)
+
+
+def _order_lane(col: Column) -> torch.Tensor:
+    """One lane whose order is the column's SQL order: collation ranks
+    of a dictionary column, int32 of a bool lane, else the values."""
+    d = col.data
+    if is_string(col.type):
+        ranks = torch.from_numpy(col.dictionary.rank_codes()).to(d.device)
+        return take_clamped(ranks, d)
+    if d.dtype == torch.bool:
+        return d.to(torch.int32)
+    return d
+
+
+def _no_hi_lane(col: Column, kind: str) -> None:
+    if col.data2 is not None:
+        raise NotImplementedError(
+            f"{kind} over DECIMAL(p>18) is not supported yet")
+
+
+def _nearest_rank(q: Optional[float], n: torch.Tensor) -> torch.Tensor:
+    """The nearest rank k = clip(floor(q (n - 1) + 0.5), 0, n - 1) of the
+    q-th percentile among n sorted values (q defaults to 0.5)."""
+    q = float(q if q is not None else 0.5)
+    k = torch.floor(q * (n - 1).to(_F64) + 0.5).to(_I64)
+    return torch.minimum(k.clamp(min=0), (n - 1).clamp(min=0))
+
+
+def _percentile(batch: Batch, agg: AggInput, col: Column,
+                seg: _Segments) -> Column:
+    """approx_percentile, exact per group: re-sort by (keys, NULL last,
+    value); each group's non-NULL values are then an ascending run at
+    its start, and the nearest-rank row of the run is the result."""
+    _no_hi_lane(col, "percentile")
+    valid_u = _agg_row_mask(batch, agg, seg.live)
+    if col.valid is not None:
+        valid_u = valid_u & col.valid
+    order2, gid2, _, _ = _resort(
+        seg.key_lanes, [(~valid_u).to(_I64), _order_lane(col)], seg.live,
+        seg.gcap)
+    cap = order2.shape[0]
+    pos = torch.arange(cap, dtype=_I64, device=order2.device)
+    start = torch.full((seg.gcap,), cap, dtype=_I64,
+                       device=pos.device).scatter_reduce_(
+        0, gid2, torch.where(seg.live[order2], pos, cap), "amin")
+    nvalid = torch.zeros(seg.gcap, dtype=_I64,
+                         device=pos.device).index_add_(
+        0, gid2, valid_u[order2].to(_I64))
+    rows = take_clamped(order2, start + _nearest_rank(agg.param, nvalid))
+    return replace(col.gather(rows), valid=nvalid > 0)
+
+
+def _arg_extreme(batch: Batch, agg: AggInput, col: Column,
+                 mask: torch.Tensor, seg: _Segments) -> Column:
+    """min_by/max_by: the value at the first row, in the group-sorted
+    order, whose comparator is the group's extreme; NULL and NaN
+    comparators take no part. NULL when the group has no comparator."""
+    order = seg.order
+    comp = batch.column(agg.input2)
+    _no_hi_lane(comp, agg.kind)
+    cvalid = mask if comp.valid is None else mask & comp.valid[order]
+    work, how, ident = _extreme_lane(comp, agg.kind)
+    work = work[order]
+    work = torch.where(cvalid & ~_isnan(work), work, ident)
+    ext = seg.reduce(work, how, ident)
+    cand = cvalid & (work == ext[seg.gid])
+    cap = order.shape[0]
+    pos = torch.arange(cap, dtype=_I64, device=order.device)
+    first = seg.reduce(torch.where(cand, pos, cap), "amin", cap)
+    out = col.gather(take_clamped(order, first))
+    has = seg.count(cvalid) > 0
+    return replace(out, valid=has if out.valid is None else has & out.valid)
+
+
+def _extreme_lane(comp: Column, kind: str):
+    """(order lane, reduction, identity) of an argmin/argmax comparator."""
+    work = _order_lane(comp)
+    lo = kind == "argmin"
+    return (work, "amin" if lo else "amax",
+            _identity("min" if lo else "max", work.dtype))
+
+
+def _isnan(x: torch.Tensor) -> torch.Tensor:
+    return torch.isnan(x) if x.is_floating_point() else \
+        torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+
+
+def _hll(vals: torch.Tensor, valid: torch.Tensor, gid: torch.Tensor,
+         gcap: int, agg: AggInput, group_valid: torch.Tensor) -> Column:
+    """approx_set: one sparse sketch per group (ops/hll.py)."""
+    b = int(agg.param) if agg.param else DEFAULT_BUCKET_BITS
+    start, length, entries = grouped_sparse_hll(vals, valid, gid, gcap, b)
+    return Column(HyperLogLogType(b), start, group_valid, None, length,
+                  Column(INTEGER, entries))
+
+
+def _hll_merge(col: Column, starts: torch.Tensor, lens: torch.Tensor,
+               valid: torch.Tensor, gid: torch.Tensor, gcap: int,
+               group_valid: torch.Tensor) -> Column:
+    """merge(hll): the per-group max-union of sketch rows, on the host
+    (ops/hll.py merge_sparse_host, as the JAX engine merges), put back
+    on the query's device. Only the rows that take part, and the
+    entries their spans reach, cross to the host."""
+    b = col.type.bucket_bits
+    dev = starts.device
+    keep = torch.nonzero(valid).flatten()
+    starts, lens = starts[keep], lens[keep]
+    start, length, ent = merge_sparse_host(
+        starts.cpu().numpy(), lens.cpu().numpy(),
+        entries_prefix(starts, lens, col.elements.data, b),
+        np.ones(keep.shape[0], dtype=bool), gid[keep].cpu().numpy(),
+        gcap, b)
+    ent = np.pad(ent, (0, capacity_for(max(ent.shape[0], 1))
+                       - ent.shape[0]))
+    return Column(HyperLogLogType(b), torch.from_numpy(start).to(dev),
+                  group_valid, None, torch.from_numpy(length).to(dev),
+                  Column(INTEGER, torch.from_numpy(ent).to(dev)))
+
+
+def _bit_ident(kind: str) -> int:
+    return -1 if kind == "bit_and" else 0
+
+
+def _bit_reduce(work: torch.Tensor, gid: torch.Tensor, nseg: int,
+                kind: str, sorted_ids: bool = False) -> torch.Tensor:
+    """Per-group AND/OR of an int64 lane (the identity where a row does
+    not count) over group ids in [0, nseg): a stable sort by group unless
+    the ids are sorted already, then an inclusive segmented scan by
+    doubling (log2(rows) steps of integer operations; a step combines a
+    row with the one ``d`` before it when both lie in one group), read
+    at each group's last row. Torch has no bitwise reduction."""
+    op = torch.bitwise_and if kind == "bit_and" else torch.bitwise_or
+    g = gid.to(_I64)
+    if not sorted_ids:
+        order = torch.sort(g, stable=True).indices
+        g, work = g[order], work[order]
+    n = work.shape[0]
+    x = work
+    d = 1
+    while d < n:
+        y = x.clone()
+        y[d:] = torch.where(g[d:] == g[:-d], op(x[d:], x[:-d]), x[d:])
+        x = y
+        d *= 2
+    pos = torch.arange(n, dtype=_I64, device=work.device)
+    last = torch.full((nseg,), -1, dtype=_I64,
+                      device=work.device).scatter_reduce_(
+        0, g.clamp(0, nseg - 1), pos, "amax")
+    return torch.where(last >= 0, x[last.clamp(min=0)], _bit_ident(kind))
 
 
 def _packed_group_aggregate(batch: Batch, key_names: Sequence[str],
@@ -383,7 +566,7 @@ def _packed_group_aggregate(batch: Batch, key_names: Sequence[str],
     gidx_c = gidx.clamp(0, nseg - 1)
     rest_ids = {id(a) for a in rest}
     for agg in aggs:
-        res = (_masked_agg(batch, agg, gmasks, nseg)
+        res = (_masked_agg(batch, agg, gmasks, nseg, packed)
                if id(agg) in rest_ids else kernel_res[agg.output])
         out_cols[agg.output] = res.gather(gidx_c)
     return Batch(out_cols, num_groups)
@@ -483,8 +666,9 @@ def _min_max(col: Column, vals: torch.Tensor, kind: str,
 
 
 def _masked_agg(batch: Batch, agg: AggInput, gmasks: List[torch.Tensor],
-                nseg: int) -> Column:
-    """One aggregate as nseg masked reductions -> [nseg] lanes."""
+                nseg: int, packed: Optional[torch.Tensor] = None) -> Column:
+    """One aggregate as nseg masked reductions -> [nseg] lanes;
+    ``packed`` holds each row's group (None: one group)."""
     if agg.mask is not None:
         mcol = batch.column(agg.mask)
         m = mcol.data.to(torch.bool)
@@ -519,6 +703,16 @@ def _masked_agg(batch: Batch, agg: AggInput, gmasks: List[torch.Tensor],
                         lambda work, ident: torch.stack(
                             [red(torch.where(g, work, ident))
                              for g in gmasks]))
+    if agg.kind in _BIT_KINDS:
+        counted = gmasks[0]
+        for g in gmasks[1:]:
+            counted = counted | g
+        gid = torch.zeros_like(vals, dtype=_I64) if packed is None \
+            else packed
+        work = torch.where(counted, vals.to(_I64), _bit_ident(agg.kind))
+        return Column(BIGINT, _bit_reduce(work, gid, nseg, agg.kind,
+                                          sorted_ids=packed is None),
+                      group_valid)
     # any_value: first valid row per group
     cap = vals.shape[0]
     pos = torch.arange(cap, dtype=_I64, device=vals.device)
@@ -608,9 +802,48 @@ def global_aggregate(batch: Batch, aggs: Sequence[AggInput],
             raise NotImplementedError(f"not yet ported: {agg.kind}")
         if agg.kind == "count_distinct":
             out[agg.output] = _global_count_distinct(batch, agg, live)
+        elif agg.kind in _ORDER_KINDS:
+            out[agg.output] = _global_ordered(batch, agg, live)
         else:
             out[agg.output] = _masked_agg(batch, agg, [live], 1)
     return Batch(out, 1)
+
+
+# the kinds global_aggregate computes from a whole-lane order or sketch
+_ORDER_KINDS = {"argmin", "argmax", "percentile", "hll", "hll_merge"}
+
+
+def _global_ordered(batch: Batch, agg: AggInput,
+                    live: torch.Tensor) -> Column:
+    """argmin/argmax, percentile, hll and hll_merge without GROUP BY."""
+    valid = _agg_row_mask(batch, agg, live)
+    col = batch.column(agg.input)
+    if agg.kind in ("argmin", "argmax"):
+        # the first row of the extreme comparator (torch.argmin/argmax
+        # return the first of equal extremes, as jnp.argmin/argmax do)
+        comp = batch.column(agg.input2)
+        _no_hi_lane(comp, agg.kind)
+        cvalid = valid if comp.valid is None else valid & comp.valid
+        work, how, ident = _extreme_lane(comp, agg.kind)
+        work = torch.where(cvalid & ~_isnan(work), work, ident)
+        idx = torch.argmin(work) if how == "amin" else torch.argmax(work)
+        out = col.gather(idx.reshape(1))
+        has = cvalid.any().reshape(1)
+        return replace(out, valid=has if out.valid is None
+                       else has & out.valid)
+    if col.valid is not None:
+        valid = valid & col.valid
+    n = valid.sum(dtype=_I64)
+    has = (n > 0).reshape(1)
+    if agg.kind == "percentile":
+        _no_hi_lane(col, "percentile")
+        order = lexsort([(~valid).to(_I64), _order_lane(col)])
+        rows = take_clamped(order, _nearest_rank(agg.param, n).reshape(1))
+        return replace(col.gather(rows), valid=has)
+    gid = torch.zeros(batch.capacity, dtype=_I64, device=live.device)
+    if agg.kind == "hll":
+        return _hll(col.data, valid, gid, 1, agg, has)
+    return _hll_merge(col, col.data, col.data2, valid, gid, 1, has)
 
 
 def _global_count_distinct(batch: Batch, agg: AggInput,

@@ -576,8 +576,13 @@ class LogicalPlanner:
                             # kernel-trace error) and re-type so the
                             # declared bucket bits match the runtime
                             # sketch
-                            raise PlanningError(
-                                "not yet ported: approx_set")
+                            from ..ops.hll import bucket_bits_for_error
+                            from ..types import HyperLogLogType
+                            try:
+                                rtype = HyperLogLogType(
+                                    bucket_bits_for_error(param))
+                            except ValueError as ex:
+                                raise PlanningError(str(ex))
                     elif kind in ("min_by", "max_by", "corr",
                                   "covar_samp", "covar_pop",
                                   "regr_slope", "regr_intercept",
