@@ -1603,6 +1603,183 @@ def phases_agg(runner_mod, session_mod, cuda_groupby, tpch_mod,
     free_device()
     phase_agg_sf1_cpu(runner_mod, session_mod)
 
+# the statement layer at tpch.sf10: a copy of lineitem's q1 columns (and
+# l_orderkey) in the memory catalog, written, queried, deleted from,
+# updated and rolled back on the card
+DML_SCHEMA = "sf10"
+DML_TABLE = "memory.default.li"
+DML_COLS = ["l_orderkey", "l_returnflag", "l_linestatus", "l_quantity",
+            "l_extendedprice", "l_discount", "l_tax", "l_shipdate"]
+
+
+def dml_step(step: str, runner, sql: str, cuda_groupby=None, **extra):
+    """One statement of the dml_sf10 phase, timed, with its peak device
+    memory; a query given ``cuda_groupby`` runs as a cold run (its
+    grouped_sums launches counted from 0 and recorded by shape)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    if cuda_groupby is not None:
+        result, wall, launches = cold_run(f"dml_sf10_{step}", runner, sql,
+                                          cuda_groupby)
+        extra["grouped_sums_launches"] = launches
+    else:
+        t0 = time.perf_counter()
+        result = runner.execute(sql)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    emit("dml_sf10", step=step, wall_s=wall,
+         rows=(result.update_count if result.update_type
+               else len(result.rows)),
+         update_type=result.update_type,
+         peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+         **extra)
+    return result
+
+
+def stored_table(runner, n: int):
+    """The memory table, checked: n rows, every lane on the card, each
+    chunk in lanes of capacity_for(its rows), their capacities summing to
+    no more than capacity_for(n). Returns a line's fields."""
+    from trino_tpu_torch.config import capacity_for
+    from trino_tpu_torch.exec.scancache import col_bytes
+    chunks = runner.catalogs.connector("memory").stored_chunks(
+        "default", "li")
+    rows = [c.num_rows_host() for c in chunks]
+    check(sum(rows) == n, f"dml_sf10: {sum(rows)} rows stored, not {n}")
+    for c, r in zip(chunks, rows):
+        check(c.capacity == capacity_for(r, minimum=8),
+              f"dml_sf10: a chunk of {r} rows has capacity {c.capacity}")
+        for col in c.columns.values():
+            for t in (col.data, col.valid, col.data2):
+                check(t is None or t.device.type == DEVICE.type,
+                      "dml_sf10: a stored lane is not on the card")
+    capacity = sum(c.capacity for c in chunks)
+    check(capacity <= capacity_for(n), f"dml_sf10: the chunks hold "
+          f"{capacity} rows, more than capacity_for({n})")
+    return {"chunks": len(chunks), "chunk_rows_max": max(rows),
+            "stored_capacity": capacity, "capacity_for_n": capacity_for(n),
+            "stored_bytes": sum(col_bytes(col) for c in chunks
+                                for col in c.columns.values())}
+
+
+def q1_rows_except(rows, drop_flag=None):
+    return [r for r in rows if r[0] != drop_flag]
+
+
+def phase_dml(runner_mod, session_mod, cuda_groupby, tpch_mod, device_mod,
+              q1_sql, q1_rows):
+    """CREATE TABLE AS, q1, DELETE, UPDATE, INSERT, a rolled-back DELETE,
+    OFFSET, TABLESAMPLE and DROP TABLE at tpch.sf10 through the runner,
+    against the q1 phase's rows and numpy over the card's lanes."""
+    sf = tpch_mod.SCHEMAS[DML_SCHEMA]
+    lanes, dicts, n = card_lanes(device_mod, "lineitem",
+                                 ["l_orderkey", "l_returnflag",
+                                  "l_linestatus"], sf,
+                                 tpch_mod.table_rows("orders", sf))
+    is_r = lanes["l_returnflag"] == dicts["l_returnflag"].index("R")
+    is_o = lanes["l_linestatus"] == dicts["l_linestatus"].index("O")
+    runner = runner_mod.LocalQueryRunner(
+        session_mod.Session(catalog="tpch", schema=DML_SCHEMA), DEVICE)
+    cols = ", ".join(DML_COLS)
+    q1_mem = q1_sql.replace("lineitem", DML_TABLE)
+    check(q1_mem != q1_sql, "dml_sf10: q1's text names no lineitem")
+    before = torch.cuda.memory_allocated()
+
+    res = dml_step("ctas", runner, f"CREATE TABLE {DML_TABLE} AS SELECT "
+                   f"{cols} FROM tpch.{DML_SCHEMA}.lineitem")
+    check(res.update_count == n, f"dml_sf10: CTAS wrote {res.update_count} "
+          f"rows, not {n}")
+    emit("dml_sf10", step="stored", rows=n, **stored_table(runner, n),
+         allocated_over_before=torch.cuda.memory_allocated() - before)
+
+    def q1(step, want, **extra):
+        res = dml_step(step, runner, q1_mem, cuda_groupby, **extra)
+        check(res.rows and cuda_groupby.LAUNCHES > 0,
+              f"dml_sf10: q1 ({step}) did not launch grouped_sums")
+        if want is not None:
+            check(rows_match(res.rows, want), f"dml_sf10: q1 ({step}) "
+                  f"rows differ: {res.rows} against {want}")
+        return res.rows
+
+    q1("q1", q1_rows)
+    res = dml_step("delete", runner,
+                   f"DELETE FROM {DML_TABLE} WHERE l_returnflag = 'R'")
+    check(res.update_count == int(is_r.sum()), "dml_sf10: DELETE count")
+    q1("q1_after_delete", q1_rows_except(q1_rows, "R"))
+    res = dml_step("update", runner, f"UPDATE {DML_TABLE} SET "
+                   "l_discount = 0 WHERE l_linestatus = 'O'")
+    check(res.update_count == int((is_o & ~is_r).sum()),
+          "dml_sf10: UPDATE count")
+    got = q1("q1_after_update", None)
+    want_f = [r for r in q1_rows_except(q1_rows, "R") if r[1] == "F"]
+    check(rows_match([r for r in got if r[1] == "F"], want_f),
+          "dml_sf10: UPDATE changed the F groups")
+    updated = [r for r in got if r[1] == "O"]
+    before_o = [r for r in q1_rows if r[1] == "O"]
+    check(len(updated) == len(before_o) >= 1, "dml_sf10: the O groups")
+    for new, old in zip(updated, before_o):
+        check(new[8] == 0.0, "dml_sf10: avg_disc of an O group is not 0")
+        check(abs(new[4] - new[3]) <= SUM_REL * abs(new[3]),
+              "dml_sf10: sum_disc_price != sum_base_price in an O group")
+        check(rows_match([new[:4] + new[6:8] + new[9:]],
+                         [old[:4] + old[6:8] + old[9:]]),
+              "dml_sf10: UPDATE changed an O group's other sums")
+    res = dml_step("insert", runner, f"INSERT INTO {DML_TABLE} SELECT "
+                   f"{cols} FROM tpch.{DML_SCHEMA}.lineitem "
+                   "WHERE l_returnflag = 'R'")
+    check(res.update_count == int(is_r.sum()), "dml_sf10: INSERT count")
+    got = q1("q1_after_insert", None)
+    check(rows_match([r for r in got if r[1] == "F"],
+                     [r for r in q1_rows if r[1] == "F"]),
+          "dml_sf10: after INSERT the F groups differ from tpch.sf10")
+    check(rows_match([r for r in got if r[1] == "O"], updated),
+          "dml_sf10: after INSERT the O groups differ from the update")
+    emit("dml_sf10", step="stored_after_insert", rows=n,
+         **stored_table(runner, n))
+
+    dml_step("start", runner, "START TRANSACTION")
+    res = dml_step("delete_all", runner, f"DELETE FROM {DML_TABLE}")
+    check(res.update_count == n, "dml_sf10: DELETE in the transaction")
+    check(runner.execute(f"SELECT count(*) FROM {DML_TABLE}").rows
+          == [[0]], "dml_sf10: the table is not empty in the transaction")
+    dml_step("rollback", runner, "ROLLBACK")
+    res = dml_step("count", runner, f"SELECT count(*) FROM {DML_TABLE}")
+    check(res.rows == [[n]], "dml_sf10: ROLLBACK lost rows")
+
+    res = dml_step("offset", runner, f"SELECT DISTINCT l_orderkey FROM "
+                   f"{DML_TABLE} ORDER BY 1 DESC LIMIT 5 OFFSET 10")
+    keys = np.unique(lanes["l_orderkey"])[::-1][10:15]
+    check(res.rows == [[int(k)] for k in keys],
+          f"dml_sf10: OFFSET rows {res.rows}, numpy {keys.tolist()}")
+
+    sample = (f"SELECT count(*) FROM tpch.{DML_SCHEMA}.lineitem "
+              "TABLESAMPLE BERNOULLI (10)")
+    plan = runner.plan_sql(sample)
+    node = plan
+    while not type(node).__name__ == "SampleNode":
+        node = node.source
+    check(type(node.source).__name__ == "TableScanNode",
+          "dml_sf10: the sample's source is not the scan")
+    res = dml_step("tablesample", runner, sample)
+    u = (mix64_np(np.arange(n, dtype=np.int64)) >> np.uint64(11)).astype(
+        np.float64) / float(1 << 53)
+    want = int((u < 0.1).sum())
+    check(not res.stream_ops, "dml_sf10: the sample's scan streamed")
+    check(res.rows == [[want]], f"dml_sf10: TABLESAMPLE counted "
+          f"{res.rows}, numpy {want}")
+    del lanes, is_r, is_o, u
+
+    stored = stored_table(runner, n)["stored_bytes"]
+    gc.collect()
+    held = torch.cuda.memory_allocated()
+    dml_step("drop", runner, f"DROP TABLE {DML_TABLE}")
+    gc.collect()
+    freed = held - torch.cuda.memory_allocated()
+    emit("dml_sf10", step="freed", stored_bytes=stored, freed_bytes=freed)
+    check(freed >= 0.9 * stored, f"dml_sf10: DROP TABLE freed {freed} "
+          f"of {stored} bytes")
+    del runner
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1654,6 +1831,9 @@ def main() -> int:
         free_device()
         phases_agg(runner_mod, session_mod, cuda_groupby, tpch_mod,
                    device_mod)
+        free_device()
+        phase_dml(runner_mod, session_mod, cuda_groupby, tpch_mod,
+                  device_mod, TPCH_QUERIES[1], rows)
         free_device()
         kernels = phase_kernel(cuda_groupby)
     except PhaseFailed as e:

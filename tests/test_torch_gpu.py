@@ -755,3 +755,93 @@ def test_spilled_sketch_column_returns_to_the_card(cuda, monkeypatch):
                 assert col.elements.data.is_pinned()
     assert spilled.rows == whole.rows
     assert whole.rows == LocalQueryRunner(device="cpu").execute(sql).rows
+
+
+# ---- the statement layer -----------------------------------------------------
+
+DML_SCRIPT = [
+    "CREATE TABLE memory.default.acct AS SELECT * FROM (VALUES "
+    "(1, 'alice', 100.0), (2, 'bob', 250.0), (3, 'carol', 0.0), "
+    "(4, 'dan', 75.0)) t(id, name, balance)",
+    "CREATE TABLE memory.default.delta AS SELECT * FROM (VALUES "
+    "(2, 40.0), (3, -1.0), (9, 500.0)) t(id, amount)",
+    "INSERT INTO memory.default.acct VALUES (5, 'erin', 12.5)",
+    "UPDATE memory.default.acct SET balance = balance + 10 "
+    "WHERE balance < 100",
+    "DELETE FROM memory.default.acct WHERE id = 1",
+    "MERGE INTO memory.default.acct a USING memory.default.delta d "
+    "ON a.id = d.id WHEN MATCHED AND d.amount < 0 THEN DELETE "
+    "WHEN MATCHED THEN UPDATE SET balance = balance + d.amount "
+    "WHEN NOT MATCHED THEN INSERT (id, name, balance) "
+    "VALUES (d.id, 'new', d.amount)",
+    "SELECT * FROM memory.default.acct ORDER BY id",
+    "START TRANSACTION",
+    "DELETE FROM memory.default.acct WHERE balance > 100",
+    "INSERT INTO memory.default.acct VALUES (7, 'gus', 1.0)",
+    "SELECT * FROM memory.default.acct ORDER BY id",
+    "ROLLBACK",
+    "SELECT * FROM memory.default.acct ORDER BY id",
+    "CREATE TABLE memory.default.li AS SELECT l_orderkey, l_returnflag, "
+    "l_quantity, l_shipdate FROM lineitem",
+    "DELETE FROM memory.default.li WHERE l_returnflag = 'R'",
+    "SELECT l_returnflag, count(*), sum(l_quantity), max(l_shipdate) "
+    "FROM memory.default.li GROUP BY 1 ORDER BY 1",
+]
+
+
+def _outcomes(runner):
+    out = []
+    for sql in DML_SCRIPT:
+        r = runner.execute(sql)
+        out.append((r.update_type, r.update_count, r.rows))
+    return out
+
+
+@pytest.mark.gpu
+def test_writes_on_card_match_cpu_and_stay_on_card(cuda):
+    """CTAS, INSERT, UPDATE, DELETE, MERGE and a rolled-back transaction
+    on the card give the CPU's counts and rows, and every stored lane is
+    on the card."""
+    card = LocalQueryRunner(device=cuda)
+    assert _outcomes(card) == _outcomes(LocalQueryRunner(device="cpu"))
+    conn = card.catalogs.connector("memory")
+    for table in ("acct", "delta", "li"):
+        for chunk in conn.stored_chunks("default", table):
+            for col in chunk.columns.values():
+                for t in (col.data, col.valid, col.data2):
+                    assert t is None or t.device.type == "cuda"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sql", [
+    "SELECT n_name FROM nation ORDER BY n_name DESC LIMIT 3 OFFSET 2",
+    "SELECT DISTINCT l_orderkey FROM lineitem ORDER BY 1 DESC "
+    "LIMIT 5 OFFSET 10",
+    "SELECT o_orderkey FROM orders ORDER BY o_totalprice, o_orderkey "
+    "OFFSET 14995",
+])
+def test_offset_on_card_matches_cpu(cuda, sql):
+    assert LocalQueryRunner(device=cuda).execute(sql).rows \
+        == LocalQueryRunner(device="cpu").execute(sql).rows
+
+
+def _mix64_np(x):
+    x = x.astype(np.uint64)
+    with np.errstate(over="ignore"):
+        x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+        return x ^ (x >> np.uint64(31))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pct", [10, 50])
+def test_tablesample_count_on_card_is_numpys(cuda, pct):
+    """The sample keeps row i of the scan when (mix64(i) >>> 11) / 2^53
+    is below the ratio: the count at tpch.tiny equals numpy's."""
+    card = LocalQueryRunner(device=cuda)
+    n = card.execute("SELECT count(*) FROM lineitem").rows[0][0]
+    u = (_mix64_np(np.arange(n)) >> np.uint64(11)).astype(np.float64) \
+        / float(1 << 53)
+    got = card.execute("SELECT count(*) FROM lineitem "
+                       f"TABLESAMPLE BERNOULLI ({pct})").rows
+    assert got == [[int((u < pct / 100).sum())]]

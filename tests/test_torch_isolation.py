@@ -42,3 +42,12 @@ _IMPORT = re.compile(
 def test_source_has_no_jax_or_trino_tpu_import(path):
     src = (PKG / path).read_text()
     assert not _IMPORT.search(src), path
+
+
+def test_the_statement_layer_modules_are_covered():
+    """The memory and system connectors are the port's own copies, and
+    the checks above reach them."""
+    for m in ("trino_tpu_torch.connectors.memory",
+              "trino_tpu_torch.connectors.system",
+              "trino_tpu_torch.runner"):
+        assert m in MODULES

@@ -372,6 +372,10 @@ class Batch:
     def select_columns(self, names: Sequence[str]) -> "Batch":
         return Batch({n: self.columns[n] for n in names}, self.num_rows)
 
+    def rename(self, mapping: Dict[str, str]) -> "Batch":
+        return Batch({mapping.get(k, k): c
+                      for k, c in self.columns.items()}, self.num_rows)
+
     def gather(self, indices: torch.Tensor,
                num_rows: NumRows) -> "Batch":
         return Batch({k: c.gather(indices)
@@ -488,6 +492,45 @@ def _pad(col: Column, cap: int) -> Column:
 def pad_batch(batch: Batch, cap: int) -> Batch:
     return Batch({k: _pad(c, cap) for k, c in batch.columns.items()},
                  batch.num_rows)
+
+
+def empty_batch(schema: Dict[str, Type], device: DeviceLike = None,
+                capacity: int = 8) -> Batch:
+    """A batch of no rows of ``schema`` on ``device``."""
+    dev = resolve_device(device)
+    cols = {}
+    for name, typ in schema.items():
+        if is_string(typ):
+            d, _ = StringDictionary.from_strings([])
+            cols[name] = Column(typ, torch.zeros(capacity, dtype=torch.int32,
+                                                 device=dev), None, d)
+        else:
+            long_dec = isinstance(typ, DecimalType) and not typ.is_short
+            cols[name] = Column(typ, torch.zeros(
+                capacity, dtype=torch_dtype(typ), device=dev), None,
+                data2=torch.zeros(capacity, dtype=torch.int64, device=dev)
+                if long_dec else None)
+    return Batch(cols, 0)
+
+
+def slice_rows(batch: Batch, lo: int, hi: int) -> Batch:
+    """Rows [lo, hi) of ``batch`` copied into lanes of their own, of
+    ``capacity_for(hi - lo)`` rows, zero-padded, on the batch's device.
+    A stored table is made of such slices: they hold none of the source's
+    padding and keep none of its storage alive. A sketch column's flat
+    entries are shared, as a gather shares them."""
+    n = max(hi - lo, 0)
+    cap = capacity_for(max(n, 1), minimum=8)
+
+    def lane(t):
+        if t is None:
+            return None
+        out = torch.zeros(cap, dtype=t.dtype, device=t.device)
+        out[:n].copy_(t[lo:hi])
+        return out
+    return Batch({k: replace(c, data=lane(c.data), valid=lane(c.valid),
+                             data2=lane(c.data2))
+                  for k, c in batch.columns.items()}, n)
 
 
 def batch_from_pylist(data: Dict[str, Sequence], schema: Dict[str, Type],

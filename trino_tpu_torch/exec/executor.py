@@ -54,12 +54,13 @@ from ..config import (CONFIG, MemoryLimitExceeded, capacity_for,
 from ..ops import compact, int128 as i128, join as join_ops, sort as sort_ops
 from ..ops.groupby import (COMBINABLE_KINDS, AggInput, _changes, _key_lanes,
                            global_aggregate, group_aggregate)
-from ..ops.hashing import GOLDEN, hash_column, to_signed_order
+from ..ops.hashing import GOLDEN, hash_column, mix64, shr, to_signed_order
 from ..ops.hll import APPROX_SET_BUCKET_BITS, bucket_bits_for_error
-from ..plan.nodes import (Aggregate, AggregationNode, EnforceSingleRowNode,
-                          FilterNode, GroupIdNode, JoinClause, JoinNode,
-                          LimitNode, MarkDistinctNode, OutputNode, PlanNode,
-                          ProjectNode, SemiJoinNode, SetOpNode, SortNode,
+from ..plan.nodes import (Aggregate, AggregationNode, AssignUniqueIdNode,
+                          EnforceSingleRowNode, FilterNode, GroupIdNode,
+                          JoinClause, JoinNode, LimitNode, MarkDistinctNode,
+                          OffsetNode, OutputNode, PlanNode, ProjectNode,
+                          SampleNode, SemiJoinNode, SetOpNode, SortNode,
                           TableScanNode, TopNNode, UnionNode, ValuesNode,
                           WindowNode)
 from ..planner.logical import SemiJoinMultiNode
@@ -183,9 +184,10 @@ class Executor:
     # aggregation, with no compaction gather
     # ------------------------------------------------------------------
     def _masked_chain_eval(self, chain, b: Batch):
-        """Evaluate a Filter/Project chain over ``b`` without compacting:
-        returns (columns, live mask). Dead rows compute garbage values
-        that the mask consumer ignores."""
+        """Evaluate a Filter/Project/Sample chain over ``b`` without
+        compacting: returns (columns, live mask). Dead rows compute
+        garbage values that the mask consumer ignores; a sample draws on
+        the positions of ``b``."""
         live = b.row_valid()
         cols = dict(b.columns)
         cap = b.capacity
@@ -195,6 +197,8 @@ class Executor:
             bb = Batch(cols, cap)
             if isinstance(nd, FilterNode):
                 live = live & eval_predicate(nd.predicate, bb)
+            elif isinstance(nd, SampleNode):
+                live = live & sample_mask(cap, nd.ratio, live.device)
             else:
                 cols = {s: eval_expr(e, bb)
                         for s, e in nd.assignments.items()}
@@ -303,10 +307,10 @@ class Executor:
     def _try_masked_filter_aggregation(self, node: AggregationNode):
         chain: List[PlanNode] = []
         cur = node.source
-        while isinstance(cur, (FilterNode, ProjectNode)):
+        while isinstance(cur, (FilterNode, ProjectNode, SampleNode)):
             chain.append(cur)
             cur = cur.source
-        if not any(isinstance(n, FilterNode) for n in chain):
+        if not any(isinstance(n, (FilterNode, SampleNode)) for n in chain):
             return None
         cols, live = self._masked_chain_eval(chain, self.execute(cur))
         return _aggregate(node, Batch(cols, live.sum(dtype=torch.int64)),
@@ -367,6 +371,24 @@ class Executor:
 
     def _exec_LimitNode(self, node: LimitNode) -> Batch:
         return compact.limit_batch(self.execute(node.source), node.count)
+
+    def _exec_OffsetNode(self, node: OffsetNode) -> Batch:
+        return compact.offset_batch(self.execute(node.source), node.count)
+
+    def _exec_SampleNode(self, node: SampleNode) -> Batch:
+        """BERNOULLI and SYSTEM alike: row i of the input is kept when
+        the splitmix64 hash of i, as a fraction in [0, 1), falls below
+        the ratio (the JAX engine's draw, bit for bit)."""
+        src = self.execute(node.source)
+        return compact.filter_batch(src, sample_mask(
+            src.capacity, node.ratio, src.device))
+
+    def _exec_AssignUniqueIdNode(self, node: AssignUniqueIdNode) -> Batch:
+        src = self.execute(node.source)
+        cols = dict(src.columns)
+        cols[node.symbol] = Column(BIGINT, torch.arange(
+            src.capacity, dtype=torch.int64, device=src.device), None)
+        return Batch(cols, src.num_rows)
 
     def _exec_SortNode(self, node: SortNode) -> Batch:
         return sort_ops.sort_batch(self.execute(node.source),
@@ -820,6 +842,16 @@ def _null_extend_right(left: Batch, right: Batch, row_mask) -> Batch:
     cols = _null_columns(left.columns, sub.capacity, sub.device)
     cols.update(sub.columns)
     return Batch(cols, sub.num_rows)
+
+
+def sample_mask(cap: int, ratio: float, device: torch.device
+                ) -> torch.Tensor:
+    """Positions 0..cap-1 whose hash draw ``(mix64(i) >>> 11) / 2^53``
+    is below ``ratio``. The u64 hash is carried in int64 (ops/hashing.py);
+    its top 53 bits convert to float64 exactly, and the division by a
+    power of two is exact on either device."""
+    h = mix64(torch.arange(cap, dtype=torch.int64, device=device))
+    return shr(h, 11).to(torch.float64) / float(1 << 53) < ratio
 
 
 def _sort_keys(keys) -> List[sort_ops.SortKey]:

@@ -41,3 +41,12 @@ def limit_batch(batch: Batch, limit: Union[int, torch.Tensor]) -> Batch:
         limit, dtype=torch.int64, device=batch.device))
     return Batch(batch.columns, n)
 
+
+
+def offset_batch(batch: Batch, offset: Union[int, torch.Tensor]) -> Batch:
+    """OFFSET n: shift the rows down by n."""
+    cap = batch.capacity
+    off = torch.as_tensor(offset, dtype=torch.int64, device=batch.device)
+    idx = torch.arange(cap, dtype=torch.int64, device=batch.device) + off
+    n = torch.clamp(batch.num_rows_device() - off, min=0)
+    return batch.gather(idx.clamp(0, max(cap - 1, 0)), n)
