@@ -27,7 +27,13 @@ all 60M rows at once against numpy with the first-row tie rule
 (``agg_order``), approx_set/merge/cardinality against a numpy sketch and
 within 3 standard errors of the exact distinct count (``agg_hll``); at
 tpch.sf1 the card's rows of those queries equal the engine's on the CPU
-(``agg_sf1_cpu``).
+(``agg_sf1_cpu``). ``scalar_sf10`` drives the scalar functions and the
+time lanes at tpch.sf10, cold and warm, against numpy: lineitem's packed
+GROUP BY through grouped_sums over bitwise, width_bucket, date_diff, a
+named zone's hour across DST, date_trunc, year_of_week and crc32;
+orders grouped on a TIMESTAMP WITH TIME ZONE key; the digests and
+hashes of every customer name against hashlib, zlib and a numpy
+xxHash64.
 The kernel's lines (trino_tpu_torch/bench_grouped_sums.py) time each
 call four ways: ``ms`` back to back as a caller sees it, ``device_ms``
 by CUDA-graph replay, ``host_us`` the wrapper's enqueue, and the
@@ -40,6 +46,7 @@ without printing a result, as does a machine without CUDA.
 from __future__ import annotations
 
 import datetime
+import functools
 import gc
 import json
 import math
@@ -431,17 +438,19 @@ def phase_q6(runner, cuda_groupby, tpch_mod, device_mod, q6):
     check(same, "q6 differs between runs")
 
 
-def card_lanes(device_mod, table: str, cols, sf: float, n_orders: int):
+def card_lanes(device_mod, table: str, cols, sf: float, n_orders: int,
+               device=DEVICE):
     """Whole-table lanes as the card generates them, copied to the host:
     (lanes, dictionaries, rows)."""
     gen = (device_mod.lineitem_batch if table == "lineitem"
            else device_mod.orders_batch)
-    batch = gen(0, n_orders, sf, list(cols), DEVICE)
+    batch = gen(0, n_orders, sf, list(cols), device)
     lanes, n = host_lanes(batch, cols)
     dicts = {c: list(batch.column(c).dictionary.values) for c in cols
              if batch.column(c).dictionary is not None}
     del batch
-    torch.cuda.empty_cache()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
     return lanes, dicts, n
 
 
@@ -776,14 +785,16 @@ def big_ranges(n_orders: int):
             for lo in range(0, n_orders, BIG_RANGE_ORDERS)]
 
 
-def q1_big_reference(tpch_mod, device_mod):
-    """q1 at sf100 with numpy alone, range by range over the lineitem
-    lanes the card generates: counts per (flag, status) as integers, the
-    sums as doubles added range after range."""
+@functools.lru_cache(maxsize=1)
+def big_lineitem_references(tpch_mod, device_mod):
+    """q1's and q6's rows at sf100 with numpy alone, in one pass range by
+    range over the lineitem lanes the card generates (q6's columns are
+    among q1's): q1's counts per (flag, status) as integers and its sums
+    as doubles added range after range; q6's sum the same way."""
     sf = tpch_mod.SCHEMAS[BIG_SCHEMA]
     n_orders = tpch_mod.table_rows("orders", sf)
     cutoff = days(1998, 12, 1) - 90
-    counts, sums, n_li = {}, {}, 0
+    counts, sums, n_li, q6 = {}, {}, 0, 0.0
     for lo, hi in big_ranges(n_orders):
         b = device_mod.lineitem_batch(lo, hi, sf, Q1_COLS, DEVICE)
         lane, n = host_lanes(b, Q1_COLS)
@@ -809,28 +820,27 @@ def q1_big_reference(tpch_mod, device_mod):
             counts[k] = counts.get(k, 0) + int(cnt[g])
             sums[k] = sums.get(k, np.zeros(5)) + np.array(
                 [float(x[g]) for x in part])
+        keep = ((lane["l_shipdate"] >= days(1994, 1, 1))
+                & (lane["l_shipdate"] < days(1995, 1, 1))
+                & (disc >= 0.05) & (disc <= 0.07)
+                & (lane["l_quantity"] < 24))
+        q6 += float(np.sum(price[keep] * disc[keep]))
     rows = []
     for k in sorted(counts):
         c, v = counts[k], sums[k]
         rows.append([k[0], k[1], *map(float, v[:4]), float(v[0] / c),
                      float(v[1] / c), float(v[4] / c), c])
+    return rows, [[q6]], n_li
+
+
+def q1_big_reference(tpch_mod, device_mod):
+    rows, _, n_li = big_lineitem_references(tpch_mod, device_mod)
     return rows, None, n_li
 
 
 def q6_big_reference(tpch_mod, device_mod):
-    """q6 at sf100 with numpy alone, range by range."""
-    sf = tpch_mod.SCHEMAS[BIG_SCHEMA]
-    total, n_li = 0.0, 0
-    for lo, hi in big_ranges(tpch_mod.table_rows("orders", sf)):
-        li, n = host_lanes(device_mod.lineitem_batch(
-            lo, hi, sf, Q6_COLS, DEVICE), Q6_COLS)
-        n_li += n
-        disc = li["l_discount"]
-        keep = ((li["l_shipdate"] >= days(1994, 1, 1))
-                & (li["l_shipdate"] < days(1995, 1, 1))
-                & (disc >= 0.05) & (disc <= 0.07) & (li["l_quantity"] < 24))
-        total += float(np.sum(li["l_extendedprice"][keep] * disc[keep]))
-    return [[total]], None, n_li
+    _, rows, n_li = big_lineitem_references(tpch_mod, device_mod)
+    return rows, None, n_li
 
 
 def q3_big_reference(tpch_mod, device_mod):
@@ -1089,7 +1099,7 @@ def phase_ds(name, sql, runners, cuda_groupby, tpcds_mod, int128_mod,
     int128_mod.DIVMOD_CALLS = 0
     cache0 = cache_stats()
     cold, warm, cold_s, warm_s, peak, launches = run_timed(
-        name, card, sql, cuda_groupby, 2)
+        name, card, sql, cuda_groupby, 1)
     extra = cache_delta(cache0)
     divmods = int128_mod.DIVMOD_CALLS // 3
     torch.cuda.empty_cache()
@@ -1165,7 +1175,7 @@ def phases_ds(runner_mod, session_mod, cuda_groupby, int128_mod):
 
 AGG_SCHEMA = "sf10"         # the three aggregate phases
 AGG_CHECK_SCHEMA = "sf1"    # the card against the engine on the CPU
-AGG_WARM_REPS = 2
+AGG_WARM_REPS = 1
 AGG_STATS_SQL = (
     "SELECT l_returnflag, l_linestatus, count(*), "
     "corr(l_extendedprice, l_quantity), "
@@ -1603,6 +1613,279 @@ def phases_agg(runner_mod, session_mod, cuda_groupby, tpch_mod,
     free_device()
     phase_agg_sf1_cpu(runner_mod, session_mod)
 
+# ---- scalar_sf10: the scalar functions and the time lanes at tpch.sf10 ----
+# (a) lineitem's packed GROUP BY through grouped_sums, over bitwise,
+# width_bucket, date_diff, a named zone's hour across DST, date_trunc,
+# year_of_week and crc32; (b) orders grouped on a TIMESTAMP WITH TIME
+# ZONE key; (c) the digests and hashes of every customer name
+SCALAR_SCHEMA = "sf10"
+SCALAR_ZONE = "America/Los_Angeles"
+SCALAR_LI_COLS = ["l_orderkey", "l_extendedprice", "l_shipdate",
+                  "l_commitdate", "l_receiptdate", "l_shipmode",
+                  "l_returnflag", "l_linestatus"]
+SCALAR_LINEITEM_SQL = (
+    "SELECT l_returnflag, l_linestatus, count(*), "
+    "count_if(bitwise_and(l_orderkey, 7) = 3), "
+    "sum(CAST(bitwise_right_shift(l_orderkey, 3) % 1000 AS DOUBLE)), "
+    "sum(CAST(width_bucket(l_extendedprice, 900, 105000, 16) AS DOUBLE)), "
+    "sum(CAST(date_diff('day', l_shipdate, l_receiptdate) AS DOUBLE)), "
+    "count_if(hour(at_timezone(CAST(l_shipdate AS TIMESTAMP) "
+    f"+ INTERVAL '13' HOUR, '{SCALAR_ZONE}')) = 6), "
+    "sum(CAST(day_of_week(date_trunc('month', l_commitdate)) AS DOUBLE)), "
+    "count_if(year_of_week(l_receiptdate) <> year(l_receiptdate)), "
+    "count_if(crc32(to_utf8(l_shipmode)) % 2 = 1), "
+    "sum(l_extendedprice / (1 + bitwise_and(l_orderkey, 3))) "
+    "FROM tpch.{schema}.lineitem GROUP BY 1, 2 ORDER BY 1, 2")
+SCALAR_ORDERS_ZONE = "Asia/Kolkata"     # +05:30 since 1945
+SCALAR_ORDERS_SQL = (
+    "SELECT date_trunc('quarter', CAST(o_orderdate AS TIMESTAMP) "
+    f"AT TIME ZONE '{SCALAR_ORDERS_ZONE}'), count(*), sum(o_totalprice), "
+    "count(DISTINCT date_format(o_orderdate, '%Y-%m')) "
+    "FROM tpch.{schema}.orders GROUP BY 1 ORDER BY 1")
+SCALAR_CUSTOMER_SQL = (
+    "SELECT count(*), count(DISTINCT md5(to_utf8(c_name))), "
+    "count(DISTINCT sha256(to_utf8(c_name))), sum(crc32(to_utf8(c_name))), "
+    "sum(xxhash64(to_utf8(c_name)) % 1000003), "
+    "sum(from_base(substr(md5(to_utf8(c_name)), 1, 8), 16)), "
+    "sum(from_base(substr(sha256(to_utf8(c_name)), 1, 8), 16)) "
+    "FROM tpch.{schema}.customer")
+
+
+def day_table(lo: int, hi: int, fn) -> np.ndarray:
+    """``fn(date)`` for each day lo..hi since 1970, by python's calendar:
+    a row's value is then ``table[day - lo]``."""
+    epoch = datetime.date(1970, 1, 1)
+    return np.asarray([fn(epoch + datetime.timedelta(days=d))
+                       for d in range(lo, hi + 1)], np.int64)
+
+
+def day_range(*lanes):
+    return (min(int(x.min()) for x in lanes),
+            max(int(x.max()) for x in lanes))
+
+
+def scalar_lineitem_reference(lanes, dicts):
+    """scalar_sf10's lineitem query with numpy and python's calendar and
+    zoneinfo (once a day of the range): per (flag, status) group the
+    counts and the integer-valued sums exactly, the double sum by numpy's
+    pairwise sum."""
+    from zoneinfo import ZoneInfo
+    import zlib
+    ok = lanes["l_orderkey"].astype(np.int64)
+    price = lanes["l_extendedprice"].astype(np.float64)
+    ship, commit, receipt = (lanes[c].astype(np.int64) for c in
+                             ("l_shipdate", "l_commitdate",
+                              "l_receiptdate"))
+    lo, hi = day_range(ship, commit, receipt)
+    zi, utc = ZoneInfo(SCALAR_ZONE), datetime.timezone.utc
+    hour = day_table(lo, hi, lambda d: datetime.datetime(
+        d.year, d.month, d.day, 13, tzinfo=utc).astimezone(zi).hour)
+    dow_of_month = day_table(lo, hi, lambda d: d.replace(day=1)
+                             .isoweekday())
+    iso_year_differs = day_table(lo, hi, lambda d: d.isocalendar()[0]
+                                 != d.year)
+    bucket = np.clip(np.floor((price - 900.0) / ((105000.0 - 900.0) / 16.0))
+                     .astype(np.int64) + 1, 0, 17)
+    crc = np.asarray([zlib.crc32(str(m).encode()) % 2
+                      for m in dicts["l_shipmode"]])[lanes["l_shipmode"]]
+    terms = [np.ones_like(ok), (ok & 7) == 3, (ok >> 3) % 1000, bucket,
+             receipt - ship, hour[ship - lo] == 6,
+             dow_of_month[commit - lo], iso_year_differs[receipt - lo],
+             crc == 1]
+    flags, stats = dicts["l_returnflag"], dicts["l_linestatus"]
+    key = lanes["l_returnflag"].astype(np.int64) * len(stats) \
+        + lanes["l_linestatus"]
+    nkey = len(flags) * len(stats)
+    # integer terms: bincount's float64 sums are exact below 2^53
+    sums = [np.bincount(key, weights=t.astype(np.float64), minlength=nkey)
+            for t in terms]
+    rows = []
+    for g in range(nkey):
+        if sums[0][g] == 0:
+            continue
+        m = key == g
+        vals = [int(x[g]) for x in sums]
+        rows.append([str(flags[g // len(stats)]), str(stats[g % len(stats)])]
+                    + vals[:2] + [float(v) for v in vals[2:5]]
+                    + [vals[5], float(vals[6]), vals[7], vals[8],
+                       float(np.sum(price[m] / (1 + (ok[m] & 3))))])
+    return sorted(rows, key=lambda r: (r[0], r[1]))
+
+
+def scalar_orders_reference(odate: np.ndarray, price: np.ndarray):
+    """scalar_sf10's orders query with numpy and python's calendar:
+    midnight UTC of a date is 05:30 of the same date in Kolkata, so each
+    order falls in its own date's quarter, whose start is an instant 05:30
+    before that day's UTC midnight."""
+    d = odate.astype(np.int64)
+    lo, hi = day_range(d)
+    qstart = day_table(lo, hi, lambda t: (datetime.date(
+        t.year, (t.month - 1) // 3 * 3 + 1, 1) - datetime.date(1970, 1, 1))
+        .days)
+    month = day_table(lo, hi, lambda t: t.year * 12 + t.month)
+    present = np.bincount(d - lo, minlength=hi - lo + 1) > 0
+    keys, gid_of_day = np.unique(qstart, return_inverse=True)
+    gid = gid_of_day[d - lo]
+    count = np.bincount(gid, minlength=len(keys))
+    ist = datetime.timezone(datetime.timedelta(hours=5, minutes=30))
+    rows = []
+    for k, key in enumerate(keys):
+        start = datetime.date(1970, 1, 1) + datetime.timedelta(days=int(key))
+        months = np.unique(month[present & (gid_of_day == k)])
+        rows.append([datetime.datetime(start.year, start.month, start.day,
+                                       tzinfo=ist), int(count[k]),
+                     float(np.sum(price[gid == k].astype(np.float64))),
+                     int(months.shape[0])])
+    return rows
+
+
+def xxh64_short_np(values) -> np.ndarray:
+    """xxHash64 (seed 0) of byte strings shorter than 32 bytes, all of one
+    length, in uint64 numpy lanes, as int64."""
+    n = len(values[0])
+    if n >= 32 or any(len(v) != n for v in values):
+        raise ValueError("xxh64_short_np takes strings of one length < 32")
+    u = np.uint64
+    p1, p2, p3, p4, p5 = (u(0x9E3779B185EBCA87), u(0xC2B2AE3D27D4EB4F),
+                          u(0x165667B19E3779F9), u(0x85EBCA77C2B2AE63),
+                          u(0x27D4EB2F165667C5))
+    buf = np.frombuffer(b"".join(values), np.uint8).reshape(len(values), n)
+
+    def word(at, size):
+        w = np.zeros(len(values), np.uint64)
+        for b in range(size):
+            w |= buf[:, at + b].astype(np.uint64) << u(8 * b)
+        return w
+
+    def rotl(x, r):
+        return (x << u(r)) | (x >> u(64 - r))
+    with np.errstate(over="ignore"):
+        h = np.full(len(values), p5, np.uint64) + u(n)
+        i = 0
+        while i + 8 <= n:
+            k = rotl(word(i, 8) * p2, 31) * p1
+            h = rotl(h ^ k, 27) * p1 + p4
+            i += 8
+        if i + 4 <= n:
+            h = rotl(h ^ (word(i, 4) * p1), 23) * p2 + p3
+            i += 4
+        while i < n:
+            h = rotl(h ^ (buf[:, i].astype(np.uint64) * p5), 11) * p1
+            i += 1
+        h ^= h >> u(33)
+        h *= p2
+        h ^= h >> u(29)
+        h *= p3
+        h ^= h >> u(32)
+    return h.view(np.int64)
+
+
+def scalar_customer_reference(names):
+    """scalar_sf10's customer query with hashlib, zlib and a numpy
+    xxHash64, in python integers."""
+    import hashlib
+    import zlib
+    raw = [str(s).encode() for s in names]
+    md5 = [hashlib.md5(b).hexdigest() for b in raw]
+    sha = [hashlib.sha256(b).hexdigest() for b in raw]
+    xx = xxh64_short_np(raw)
+    return [[len(raw), len(set(md5)), len(set(sha)),
+             sum(zlib.crc32(b) for b in raw),
+             int(np.fmod(xx, 1000003).sum()),
+             sum(int(h[:8], 16) for h in md5),
+             sum(int(h[:8], 16) for h in sha)]]
+
+
+def scalar_rows_errors(got, want):
+    """The cells where ``got`` differs from ``want``: integers, strings
+    and timestamps (and their offsets) exact, doubles within SUM_REL."""
+    if len(got) != len(want):
+        return [{"rows": len(got), "want_rows": len(want)}]
+    errors = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        for j, (a, b) in enumerate(zip(g, w)):
+            if isinstance(b, float):
+                bad = not (isinstance(a, float)
+                           and abs(a - b) <= SUM_REL * abs(b))
+            else:
+                bad = a != b or (isinstance(b, datetime.datetime)
+                                 and a.utcoffset() != b.utcoffset())
+            if bad:
+                errors.append({"row": i, "column": j, "got": a, "want": b})
+    return errors
+
+
+def customer_names(tpch_mod, sf: float):
+    """c_name of every customer, from the host generator."""
+    n = tpch_mod.table_rows("customer", sf)
+    batch = tpch_mod.TpchConnector(device="cpu")._customer(
+        np.arange(1, n + 1, dtype=np.int64), sf, ["c_name"])
+    col = batch.column("c_name")
+    return col.dictionary.values[col.data[:n].numpy()]
+
+
+def scalar_references(tpch_mod, device_mod, schema: str, device=DEVICE):
+    """The numpy rows of scalar_sf10's three queries at ``schema``, over
+    the lanes the device generates and the host's customer names."""
+    sf = tpch_mod.SCHEMAS[schema]
+    n_orders = tpch_mod.table_rows("orders", sf)
+    lanes, dicts, n_li = card_lanes(device_mod, "lineitem", SCALAR_LI_COLS,
+                                    sf, n_orders, device)
+    li = scalar_lineitem_reference(lanes, dicts)
+    del lanes
+    olanes, _, _ = card_lanes(device_mod, "orders",
+                              ["o_orderdate", "o_totalprice"], sf,
+                              n_orders, device)
+    orders = scalar_orders_reference(olanes["o_orderdate"],
+                                     olanes["o_totalprice"])
+    cust = scalar_customer_reference(customer_names(tpch_mod, sf))
+    return {"lineitem": li, "orders": orders, "customer": cust}, n_li
+
+
+def phase_scalar(runner_mod, session_mod, cuda_groupby, tpch_mod,
+                 device_mod):
+    """scalar_sf10: the three queries at tpch.sf10 through
+    LocalQueryRunner().execute, cold and warm, against numpy."""
+    t_phase = time.perf_counter()
+    runner = runner_mod.LocalQueryRunner(
+        session_mod.Session(catalog="tpch", schema=SCALAR_SCHEMA))
+    runs = {}
+    for name, sql, reps in (("lineitem", SCALAR_LINEITEM_SQL, 1),
+                            ("orders", SCALAR_ORDERS_SQL, 2),
+                            ("customer", SCALAR_CUSTOMER_SQL, 1)):
+        cache0 = cache_stats()
+        cold, warm, cold_s, warm_s, peak, launches = run_timed(
+            "scalar_sf10", runner, sql.format(schema=SCALAR_SCHEMA),
+            cuda_groupby, reps)
+        runs[name] = (cold, dict(
+            cold_s=cold_s, warm_s=warm_s, warm_runs=len(warm),
+            max_memory_allocated=peak, grouped_sums_launches=launches,
+            kernel_shapes=sorted(f"{k[0]}x{k[1]}x{k[2]}"
+                                 for k in _COLD["last"]),
+            same_rows_every_run=all(w.rows == cold.rows for w in warm),
+            **cache_delta(cache0)))
+        torch.cuda.empty_cache()
+    del runner
+    free_device()
+    t_ref = time.perf_counter()
+    want, n_li = scalar_references(tpch_mod, device_mod, SCALAR_SCHEMA)
+    ref_s = time.perf_counter() - t_ref
+    ok = True
+    for name, (cold, fields) in runs.items():
+        errors = scalar_rows_errors(cold.rows, want[name])
+        emit("scalar_sf10", query=name, schema=f"tpch.{SCALAR_SCHEMA}",
+             rows=len(cold.rows), result=cold.rows, equal_numpy=not errors,
+             errors=errors[:10], **fields)
+        ok &= not errors and fields["same_rows_every_run"]
+        check(not errors, f"scalar_sf10 {name} differs from numpy")
+        check(fields["same_rows_every_run"],
+              f"scalar_sf10 {name} rows differ between runs")
+    check(runs["lineitem"][1]["grouped_sums_launches"] > 0,
+          "scalar_sf10 did not launch grouped_sums")
+    emit("scalar_sf10_total", lineitem_rows=n_li, reference_s=ref_s,
+         phase_s=time.perf_counter() - t_phase, host=host_memory())
+
+
 # the statement layer at tpch.sf10: a copy of lineitem's q1 columns (and
 # l_orderkey) in the memory catalog, written, queried, deleted from,
 # updated and rolled back on the card
@@ -1818,7 +2101,7 @@ def main() -> int:
         phase_query("q14", runner, cuda_groupby, tpch_mod, device_mod,
                     TPCH_QUERIES[14], q14_reference, 3)
         phase_query("q9", runner, cuda_groupby, tpch_mod, device_mod,
-                    TPCH_QUERIES[9], q9_reference, 2, expr_mod)
+                    TPCH_QUERIES[9], q9_reference, 1, expr_mod)
         q18 = phase_query("q18", runner, cuda_groupby, tpch_mod,
                           device_mod, TPCH_QUERIES[18], q18_reference, 2)
         check(q18.spill_bytes > 0, "q18 did not spill to host memory")
@@ -1831,6 +2114,9 @@ def main() -> int:
         free_device()
         phases_agg(runner_mod, session_mod, cuda_groupby, tpch_mod,
                    device_mod)
+        free_device()
+        phase_scalar(runner_mod, session_mod, cuda_groupby, tpch_mod,
+                     device_mod)
         free_device()
         phase_dml(runner_mod, session_mod, cuda_groupby, tpch_mod,
                   device_mod, TPCH_QUERIES[1], rows)

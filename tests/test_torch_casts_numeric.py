@@ -52,7 +52,7 @@ SQL = {
         "FROM (VALUES 2.25e0, -2.25e0, 2.35e0, -0.05e0, 7.449e0) t(x)",
     "short_decimal_operators_and_functions":
         "SELECT a * b, a % b, a + b, a - b, -a, a < b, a = b, "
-        "round(c, 1), abs(c), floor(c), sign(c), CAST(c AS DOUBLE), "
+        "round(c, 1), abs(c), CAST(c AS DOUBLE), "
         "CAST(c AS BIGINT) FROM (SELECT CAST(x AS DECIMAL(4,2)) a, "
         "CAST(y AS DECIMAL(3,1)) b, CAST(x AS DECIMAL(9,3)) c FROM (VALUES "
         "('1.25', '-0.3'), ('-7.55', '2.0'), ('-0.05', '-0.7'), "

@@ -845,3 +845,112 @@ def test_tablesample_count_on_card_is_numpys(cuda, pct):
     got = card.execute("SELECT count(*) FROM lineitem "
                        f"TABLESAMPLE BERNOULLI ({pct})").rows
     assert got == [[int((u < pct / 100).sum())]]
+
+
+# ---- the scalar functions and the time lanes on the card --------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("zone", ["America/Los_Angeles", "Europe/London",
+                                  "Australia/Lord_Howe", "Asia/Kolkata"])
+def test_zone_offsets_on_card_match_zoneinfo(cuda, zone):
+    """The transition table and searchsorted on the card against zoneinfo
+    per instant: random instants of 1900-2100 and both sides of every
+    transition of 1990-2030, as instants and as wall-clock times."""
+    import datetime
+    from zoneinfo import ZoneInfo
+    from trino_tpu_torch.ops import timezone as tz
+    rng = np.random.default_rng(13)
+    ms = rng.integers(-2_208_988_800_000, 4_102_444_800_000, 4000)
+    starts, _ = tz.transitions(zone, 7305, 21915)
+    ms = np.concatenate([ms, starts[1:] - 1, starts[1:], starts[1:] + 1,
+                         starts[1:] + 1_800_000, starts[1:] - 1_800_000])
+    lane = torch.from_numpy(ms).to(cuda)
+    got = tz.offsets_at(zone, lane).cpu().numpy()
+    got_local = tz.offsets_for_local(zone, lane).cpu().numpy()
+    zi = ZoneInfo(zone)
+    utc = datetime.datetime(1970, 1, 1, tzinfo=datetime.timezone.utc)
+    naive = datetime.datetime(1970, 1, 1)
+
+    def off(t):
+        return int(t.utcoffset().total_seconds()) // 60
+    assert got.tolist() == [
+        off((utc + datetime.timedelta(milliseconds=int(v))).astimezone(zi))
+        for v in ms]
+    assert got_local.tolist() == [
+        off((naive + datetime.timedelta(milliseconds=int(v)))
+            .replace(tzinfo=zi)) for v in ms]
+
+
+@pytest.mark.gpu
+def test_logical_right_shift_on_card(cuda):
+    """bitwise_right_shift on the card is >>> over negative values and
+    every shift count, as Python's arithmetic on the u64 pattern; bit_count
+    counts the low bits of a negative value's two's complement."""
+    from trino_tpu_torch.exec.scalars import logical_shr, popcount64
+    rng = np.random.default_rng(3)
+    x = np.concatenate([rng.integers(-(1 << 63), (1 << 63) - 1, 4096,
+                                     dtype=np.int64),
+                        np.asarray([-1, -(1 << 63), (1 << 63) - 1, 0, -16],
+                                   np.int64)])
+    s = rng.integers(0, 64, x.shape[0])
+    got = logical_shr(torch.from_numpy(x).to(cuda),
+                      torch.from_numpy(s).to(cuda)).cpu().numpy()
+    want = [((int(v) & ((1 << 64) - 1)) >> int(k)) for v, k in zip(x, s)]
+    want = [w - (1 << 64) if w >= (1 << 63) else w for w in want]
+    assert got.tolist() == want
+    pc = popcount64(torch.from_numpy(x).to(cuda)).cpu().numpy()
+    assert pc.tolist() == [bin(int(v) & ((1 << 64) - 1)).count("1")
+                           for v in x]
+    rows = LocalQueryRunner().execute(
+        "SELECT bitwise_right_shift(x, 2), bitwise_right_shift(x, 63), "
+        "bit_count(x, 8), bit_count(x, 64) FROM (VALUES CAST(-16 AS BIGINT),"
+        " CAST(-1 AS BIGINT), CAST(37 AS BIGINT)) t(x)").rows
+    assert rows == [[(1 << 62) - 4, 1, 4, 60], [(1 << 62) - 1, 1, 8, 64],
+                    [9, 0, 3, 3]]
+
+
+@pytest.mark.gpu
+def test_width_bucket_edges_on_card(cuda):
+    """width_bucket on the card at its edges (the bounds, just inside and
+    outside them, reversed bounds, NULL) equals numpy's IEEE division: no
+    reciprocal multiply."""
+    edges = [900.0, 105000.0, 904.0, 6506.25 + 900.0, 104999.99,
+             105000.01, 899.99, -1.0, 1e300, 52950.0]
+    sql = ("SELECT x, width_bucket(x, 900, 105000, 16), width_bucket(x, "
+           "105000, 900, 16), width_bucket(x, 0.5e0, 7.3e0, 7) FROM (VALUES "
+           + ", ".join(f"{v!r}e0" if "e" not in repr(v) else repr(v)
+                       for v in edges) + ", NULL) t(x) ORDER BY 1")
+    got = LocalQueryRunner().execute(sql).rows
+    assert got == LocalQueryRunner(device="cpu").execute(sql).rows
+
+    def wb(x, lo, hi, n):
+        if hi >= lo:
+            b = np.floor((np.float64(x) - lo) / ((np.float64(hi) - lo) / n))
+        else:
+            b = np.floor((np.float64(lo) - x) / ((np.float64(lo) - hi) / n))
+        return int(min(max(b + 1, 0), n + 1))
+    for row in got[:-1]:
+        x = row[0]
+        assert row[1:] == [wb(x, 900, 105000, 16), wb(x, 105000, 900, 16),
+                           wb(x, 0.5, 7.3, 7)], row
+    assert got[-1] == [None, None, None, None]
+
+
+@pytest.mark.gpu
+def test_scalar_functions_on_card_match_cpu(cuda):
+    """The lineitem query of chip_smoke.py's scalar_sf10 phase and the
+    time lanes at tpch.sf1: the card's rows equal the CPU's."""
+    import chip_smoke as cs
+    from trino_tpu_torch.session import Session
+    sqls = [cs.SCALAR_LINEITEM_SQL.format(schema="sf1"),
+            cs.SCALAR_ORDERS_SQL.format(schema="sf1"),
+            "SELECT date_format(o_orderdate, '%Y-%m-%d %W'), "
+            "to_iso8601(CAST(o_orderdate AS TIMESTAMP) AT TIME ZONE "
+            "'Europe/Berlin'), md5(o_comment), count(*) FROM orders "
+            "WHERE o_orderkey < 20000 GROUP BY 1, 2, 3 ORDER BY 1, 2, 3"]
+    for sql in sqls:
+        card = LocalQueryRunner(Session(catalog="tpch", schema="sf1"))
+        cpu = LocalQueryRunner(Session(catalog="tpch", schema="sf1"),
+                               device="cpu")
+        got, want = card.execute(sql).rows, cpu.execute(sql).rows
+        assert cs.scalar_rows_errors(got, want) == []

@@ -51,3 +51,18 @@ def test_the_statement_layer_modules_are_covered():
               "trino_tpu_torch.connectors.system",
               "trino_tpu_torch.runner"):
         assert m in MODULES
+
+
+def test_chip_smoke_imports_no_jax_or_trino_tpu():
+    """chip_smoke.py, which the card's machine runs without jax, imports
+    neither jax nor the JAX engine, at its top or inside a phase."""
+    src = (PKG.parent / "chip_smoke.py").read_text()
+    assert not _IMPORT.search(src)
+    code = ("import sys, chip_smoke\n"
+            "print(sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib')) or m == 'trino_tpu' or "
+            "m.startswith('trino_tpu.')))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=str(PKG.parent), timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"

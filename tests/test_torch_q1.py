@@ -149,7 +149,7 @@ def test_batch_from_pylist_with_nulls_and_decimals():
 
 @pytest.mark.parametrize("sql", [
     "SELECT x FROM UNNEST(ARRAY[1, 2]) AS t(x)",
-    "SELECT CAST(o_orderdate AS TIMESTAMP) FROM orders",
+    "SELECT split(o_comment, ' ') FROM orders",
     "EXPLAIN ANALYZE SELECT n_name FROM nation ORDER BY n_name OFFSET 3",
     "SELECT try(greatest(n_name, 'B')) FROM nation",
     "SELECT greatest(n_name, 'B') FROM nation",

@@ -6,6 +6,11 @@ Counterpart of ``trino_tpu/columnar.py``, with the same contract:
   (``valid``; None means every live row is non-null), for string types a
   host-side ``StringDictionary`` whose int32 codes are the lane, and for
   DECIMAL(p>18) a high int64 lane (``data2``).
+- DATE is int32 days since 1970-01-01; TIMESTAMP(p) and TIME(p) are int64
+  milliseconds (since 1970-01-01 and of the day). TIMESTAMP(p) WITH TIME
+  ZONE is the UTC instant in int64 milliseconds with the zone's offset
+  minutes in ``data2``, which only display and field extraction read
+  (``key_hi_lane``).
 - A HyperLogLog sketch column is ragged: ``data`` holds each row's start
   offset into the flat lane of packed int32 entries ``elements`` (a
   Column of its own, of any length), ``data2`` each row's entry count
@@ -33,7 +38,8 @@ import numpy as np
 import torch
 
 from .config import DeviceLike, capacity_for, resolve_device
-from .types import (BOOLEAN, CharType, DecimalType, Type, is_string)
+from .types import (BOOLEAN, CharType, DecimalType, TimestampTZType, Type,
+                    is_string)
 
 NumRows = Union[int, torch.Tensor]
 
@@ -70,26 +76,33 @@ class StringDictionary:
     Equality and hash are content-based (order-sensitive fingerprint).
     """
 
-    __slots__ = ("values", "_index", "_fp")
+    __slots__ = ("values", "_index", "_fp", "_derived")
 
     def __init__(self, values: np.ndarray, _index: Optional[dict] = None):
         self.values = np.asarray(values, dtype=object)
         self._index = _index
         self._fp: Optional[tuple] = None
+        self._derived: Optional[dict] = None
+
+    def derived(self, key, build):
+        """``build()`` once per ``key`` over this dictionary: the value of
+        a named pure function of the values, kept as long as the
+        dictionary is (its values never change)."""
+        if self._derived is None:
+            self._derived = {}
+        if key not in self._derived:
+            self._derived[key] = build()
+        return self._derived[key]
 
     @staticmethod
     def from_strings(strings: Sequence[Optional[str]]):
-        """Build (dictionary, codes) from raw strings; None -> code 0."""
+        """Build (dictionary, codes) from raw strings, codes in order of
+        first appearance; None -> code 0."""
         uniq: Dict[str, int] = {}
-        codes = np.empty(len(strings), dtype=np.int32)
-        for i, s in enumerate(strings):
-            if s is None:
-                codes[i] = 0
-                continue
-            c = uniq.get(s)
-            if c is None:
-                c = uniq.setdefault(s, len(uniq))
-            codes[i] = c
+        add = uniq.setdefault
+        codes = np.fromiter((0 if s is None else add(s, len(uniq))
+                             for s in strings), dtype=np.int32,
+                            count=len(strings))
         if not uniq:
             uniq[""] = 0
         vals = np.empty(len(uniq), dtype=object)
@@ -160,6 +173,16 @@ class StringDictionary:
         merged = StringDictionary(np.asarray(vals, dtype=object), idx)
         remap_self = np.arange(len(self.values), dtype=np.int32)
         return merged, remap_self, remap_other
+
+
+def key_hi_lane(col: "Column") -> Optional[torch.Tensor]:
+    """The high lane that takes part in value equality and order: a long
+    decimal's. A TIMESTAMP WITH TIME ZONE's ``data2`` holds its zone
+    offset, which is display payload: equal instants in two zones are
+    equal, so its instant lane compares alone."""
+    if col.data2 is None or isinstance(col.type, TimestampTZType):
+        return None
+    return col.data2
 
 
 def take_clamped(lane: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
@@ -505,11 +528,12 @@ def empty_batch(schema: Dict[str, Type], device: DeviceLike = None,
             cols[name] = Column(typ, torch.zeros(capacity, dtype=torch.int32,
                                                  device=dev), None, d)
         else:
-            long_dec = isinstance(typ, DecimalType) and not typ.is_short
+            hi_lane = (isinstance(typ, DecimalType) and not typ.is_short
+                       or isinstance(typ, TimestampTZType))
             cols[name] = Column(typ, torch.zeros(
                 capacity, dtype=torch_dtype(typ), device=dev), None,
                 data2=torch.zeros(capacity, dtype=torch.int64, device=dev)
-                if long_dec else None)
+                if hi_lane else None)
     return Batch(cols, 0)
 
 

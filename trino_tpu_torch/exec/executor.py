@@ -48,7 +48,7 @@ import torch
 
 from ..catalog import CatalogManager
 from ..columnar import (Batch, Column, StringDictionary, batch_from_pylist,
-                        pad_batch, take_clamped)
+                        key_hi_lane, pad_batch, take_clamped)
 from ..config import (CONFIG, MemoryLimitExceeded, capacity_for,
                       reserve_bytes)
 from ..ops import compact, int128 as i128, join as join_ops, sort as sort_ops
@@ -93,11 +93,12 @@ class QueryError(Exception):
 def _keys_inexact(cols: Dict[str, Column], keys: Sequence[str]) -> bool:
     """True when the u64 equality lane of ops/join.py is not bijective
     for these keys: several columns (hash-combined), a float (hashed) or
-    an Int128 decimal (only the low lane is hashed)."""
+    an Int128 decimal (only the low lane is hashed). A TIMESTAMP WITH
+    TIME ZONE joins on its instant lane alone, which is exact."""
     if len(keys) > 1:
         return True
     c = cols[keys[0]]
-    return c.data2 is not None or c.data.is_floating_point()
+    return key_hi_lane(c) is not None or c.data.is_floating_point()
 
 
 def join_verify_filter(left_cols, right_cols, pkeys, bkeys, filt):
@@ -1021,7 +1022,7 @@ def _lower_aggregates(aggregates: Dict[str, Aggregate], src: Batch):
             # of row hashes (ops/hashing.py), NULL a fixed odd constant
             arg = src.column(a.argument)
             h = hash_column(arg.data, arg.valid)
-            if arg.data2 is not None:
+            if key_hi_lane(arg) is not None:
                 h = h * 31 + hash_column(arg.data2, arg.valid)
             if arg.valid is not None:
                 h = torch.where(arg.valid, h, GOLDEN)

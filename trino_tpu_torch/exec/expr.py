@@ -11,9 +11,16 @@ sqrt, exp, ln, the trigonometric family, ...), LIKE and the regexp
 family, the string functions (lower, upper, trim, length, substring,
 concat, strpos, replace, split_part, lpad, ...), date arithmetic with
 day-time and year-month intervals, and the date fields (year, month,
-day, quarter, ... and EXTRACT of them from a DATE). Anything else raises
+day, quarter, ... and EXTRACT of them). exec/timefns.py adds the
+TIMESTAMP, TIME and TIMESTAMP WITH TIME ZONE functions and
+exec/scalars.py the rest of the scalar functions (bitwise, digests, URL,
+text, math, VARBINARY codecs, JSON). Anything else (the functions of
+ARRAY, MAP and ROW values, of quantile digests and of geometries) raises
 ``NotYetPorted("not yet ported: ...")``, an EvalError that try() lets
 through.
+
+A function of a DECIMAL argument that computes in doubles reads the
+decimal's value (``_f64``), not its unscaled lane.
 
 Decimals over 18 digits (DECIMAL(p>18), among them every SQL decimal
 division, which the planner types DECIMAL(38, 6)) carry a high lane
@@ -46,8 +53,8 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from ..columnar import Batch, Column, StringDictionary, take_clamped, \
-    torch_dtype
+from ..columnar import Batch, Column, StringDictionary, key_hi_lane, \
+    take_clamped, torch_dtype
 from ..config import capacity_for
 from ..ops import hll
 from ..ops import int128 as i128
@@ -55,10 +62,13 @@ from ..ops.datetime import add_months, extract_field
 from ..rex import Call, CaseExpr, Cast, Const, InputRef, RowExpr
 from ..types import (BIGINT, BOOLEAN, DATE, DOUBLE, INTEGER, UNKNOWN,
                      VARCHAR, CharType, DecimalType, HyperLogLogType,
-                     IntervalYearMonth, Type, is_integral, is_string)
+                     IntervalYearMonth, TimestampType, TimestampTZType,
+                     TimeType, Type, iso_time_millis, iso_timestamp_millis,
+                     iso_timestamp_tz, is_integral, is_string)
 
 _F64 = torch.float64
 _I64 = torch.int64
+MS_DAY = 86_400_000
 
 
 class EvalError(Exception):
@@ -109,13 +119,19 @@ def const_column(e: Const, cap: int, device: torch.device) -> Column:
             return _sketches(t, _full(0, cap, _I64, device), invalid,
                              _full(0, cap, _I64, device),
                              hll.empty_sketch_lane(device))
-        if is_string(t):
+        if _stringy(t):
             d, _ = StringDictionary.from_strings([])
             return Column(t, _full(0, cap, torch.int32, device), invalid, d)
-        return Column(t, _full(0, cap, _lane_dtype(t), device), invalid)
-    if is_string(t):
+        return Column(t, _full(0, cap, _lane_dtype(t), device), invalid,
+                      data2=_full(0, cap, _I64, device)
+                      if isinstance(t, TimestampTZType) else None)
+    if _stringy(t):
         d = StringDictionary(np.asarray([e.value], dtype=object))
         return Column(t, _full(0, cap, torch.int32, device), None, d)
+    if isinstance(t, TimestampTZType):
+        ms, off = e.value if isinstance(e.value, tuple) else (e.value, 0)
+        return Column(t, _full(ms, cap, _I64, device), None,
+                      data2=_full(off or 0, cap, _I64, device))
     if isinstance(t, DecimalType):
         q = _decimal_unscaled(e.value, t.scale)
         if t.is_short:
@@ -165,6 +181,17 @@ def _lane_dtype(t: Type) -> torch.dtype:
     return torch_dtype(BOOLEAN if t == UNKNOWN else t)
 
 
+def _f64(c: Column) -> torch.Tensor:
+    """The column's values as float64: a decimal's value, not its
+    unscaled lane."""
+    if isinstance(c.type, DecimalType):
+        if c.data2 is not None:
+            return _div_scalar(i128.to_double(*_lanes128(c)),
+                               10.0 ** c.type.scale)
+        return _div_scalar(c.data.to(_F64), 10.0 ** c.type.scale)
+    return c.data.to(_F64)
+
+
 # ---- dictionary machinery ------------------------------------------------
 
 def _codes_through(col: Column, table: np.ndarray) -> torch.Tensor:
@@ -175,24 +202,79 @@ def _codes_through(col: Column, table: np.ndarray) -> torch.Tensor:
                         .to(col.device), col.data)
 
 
-def _dict_transform(col: Column, fn: Callable[[str], object],
-                    out_type: Type) -> Column:
-    """Evaluate ``fn`` on the host once per dictionary value, then gather
-    its result table on the device by the code lane. A None result is
-    NULL."""
-    out = [fn(str(v)) for v in col.dictionary.values]
+def _dict_transform(col: Column, fn: Optional[Callable[[str], object]],
+                    out_type: Type, key=None, many=None) -> Column:
+    """Evaluate ``fn`` on the host once per dictionary value (or ``many``
+    once over the list of them), then gather its result table on the
+    device by the code lane. A None result is NULL. An all-NULL column of
+    no type (a bare NULL) stays NULL. Given a ``key`` naming the function
+    (with its constant arguments), the dictionary keeps the table for the
+    next call over it."""
+    if col.dictionary is None:
+        return const_column(Const(None, out_type), col.capacity, col.device)
+    vals = col.dictionary.values
+
+    def build():
+        return _host_table(many(vals) if many is not None
+                           else [fn(str(v)) for v in vals], out_type)
+    table = (build() if key is None
+             else col.dictionary.derived((key, str(out_type)), build))
+    return _gather_table(table, col.data, col.valid, out_type)
+
+
+def _host_table(out: List, out_type: Type):
+    """(values or codes, dictionary or None, NULL flags or None) of a host
+    result table (None is NULL)."""
     nulls = np.asarray([v is None for v in out], dtype=bool)
-    valid = col.valid
-    if nulls.any():
-        nv = ~_codes_through(col, nulls)
-        valid = nv if valid is None else valid & nv
-    if is_string(out_type):
+    if _stringy(out_type):
         d, codes = StringDictionary.from_strings(out)
-        return Column(out_type, _codes_through(col, codes.astype(np.int32)),
-                      valid, d)
-    tbl = np.asarray([0 if v is None else v for v in out],
-                     dtype=out_type.np_dtype)
-    return Column(out_type, _codes_through(col, tbl), valid)
+        tbl = codes.astype(np.int32)
+    else:
+        d = None
+        tbl = np.asarray([0 if v is None else v for v in out],
+                         dtype=out_type.np_dtype)
+    return tbl, d, nulls if nulls.any() else None
+
+
+def _gather_table(table, index: torch.Tensor, valid: Optional[torch.Tensor],
+                  out_type: Type) -> Column:
+    tbl, d, nulls = table
+    dev = index.device
+    if nulls is not None:
+        nv = ~take_clamped(torch.from_numpy(nulls).to(dev), index)
+        valid = nv if valid is None else valid & nv
+    return Column(out_type, take_clamped(torch.from_numpy(tbl).to(dev),
+                                         index), valid, d)
+
+
+def _table_column(out: List, index: torch.Tensor,
+                  valid: Optional[torch.Tensor], out_type: Type) -> Column:
+    """A column whose row i is ``out[index[i]]``: the host table ``out``
+    (None is NULL) gathered on the device by the ``index`` lane."""
+    return _gather_table(_host_table(out, out_type), index, valid, out_type)
+
+
+def per_distinct(lanes: List[torch.Tensor], valid: Optional[torch.Tensor],
+                 fn: Callable, out_type: Type) -> Column:
+    """``fn(*values)`` on the host once per distinct row of ``lanes`` (one
+    lane of any dtype, or several integer lanes), found by
+    ``torch.unique`` on their device and gathered back by each row's
+    index; a None result is NULL. NULL rows read as zeros and stay
+    NULL."""
+    if len(lanes) == 1:
+        key = lanes[0]
+        if valid is not None:
+            key = torch.where(valid, key, torch.zeros_like(key))
+        uniq, inverse = torch.unique(key, return_inverse=True)
+        rows = [(v,) for v in uniq.cpu().tolist()]
+    else:
+        key = torch.stack([x.to(_I64) for x in lanes], 1)
+        if valid is not None:
+            key = torch.where(valid[:, None], key, 0)
+        uniq, inverse = torch.unique(key, dim=0, return_inverse=True)
+        rows = uniq.cpu().tolist()
+    out = [fn(*row) for row in rows]
+    return _table_column(out, inverse, valid, out_type)
 
 
 def _materialize_strings(col: Column) -> List:
@@ -200,6 +282,8 @@ def _materialize_strings(col: Column) -> List:
     host."""
     codes = col.data.cpu().numpy()
     valid = None if col.valid is None else col.valid.cpu().numpy()
+    if col.dictionary is None:      # a bare NULL
+        return [None] * len(codes)
     vals = col.dictionary.values
     return [None if valid is not None and not valid[i]
             else str(vals[int(codes[i])]) for i in range(len(codes))]
@@ -330,9 +414,18 @@ def _try(e, batch):
 def _greatest_least(which):
     def h(e, batch):
         cols = [eval_expr(a, batch) for a in e.args]
-        _no_hi_lane(which, *cols)
         if is_string(e.type):
             raise NotYetPorted(f"not yet ported: {which} over varchar")
+        if any(c.data2 is not None for c in cols) and _long(e.type):
+            lo, hi = _lanes128(cols[0])
+            for c in cols[1:]:
+                clo, chi = _lanes128(c)
+                take = (i128.lt128(lo, hi, clo, chi) if which == "greatest"
+                        else i128.lt128(clo, chi, lo, hi))
+                lo = torch.where(take, clo, lo)
+                hi = torch.where(take, chi, hi)
+            return Column(e.type, lo, _merge_valid(*cols), data2=hi)
+        _no_hi_lane(which, *cols)
         pick = torch.maximum if which == "greatest" else torch.minimum
         dt = _lane_dtype(e.type)
         data = cols[0].data.to(dt)
@@ -357,7 +450,7 @@ def _equal(a: Column, b: Column) -> torch.Tensor:
     if is_string(a.type):
         da, db, _ = _align_string_codes(a, b)
         return da == db
-    if a.data2 is not None or b.data2 is not None:
+    if key_hi_lane(a) is not None or key_hi_lane(b) is not None:
         return _cmp_int128("=", a, b)
     return a.data == b.data
 
@@ -398,9 +491,13 @@ def cast_column(src: Column, t: Type, safe: bool = False) -> Column:
     if is_string(s):
         if _long(t):
             return _parse_long_decimal(src, t, safe)
+        if isinstance(t, TimestampTZType):
+            return _parse_tstz(src, t, safe)
         return _dict_transform(src, _parser_for(t, safe), t)
     if is_string(t):
         return _to_varchar(src, t)
+    if _is_time(s) or _is_time(t):
+        return _cast_time(src, t)
     if t.np_dtype is None or s.np_dtype is None \
             or s.name.startswith("time") or t.name.startswith("time") \
             or s.name.startswith("interval") \
@@ -470,6 +567,57 @@ def cast_column(src: Column, t: Type, safe: bool = False) -> Column:
 
 def _stringy(t: Type) -> bool:
     return is_string(t) or t.name == "varbinary"
+
+
+def _is_time(t: Type) -> bool:
+    return isinstance(t, (TimestampType, TimestampTZType, TimeType))
+
+
+def local_millis(c: Column) -> torch.Tensor:
+    """The wall-clock milliseconds of a TIMESTAMP or TIMESTAMP WITH TIME
+    ZONE lane (the instant plus its zone offset)."""
+    ms = c.data.to(_I64)
+    if isinstance(c.type, TimestampTZType) and c.data2 is not None:
+        ms = ms + c.data2 * 60_000
+    return ms
+
+
+def _zeros(c: Column) -> torch.Tensor:
+    return torch.zeros(c.capacity, dtype=_I64, device=c.device)
+
+
+def _cast_time(src: Column, t: Type) -> Column:
+    """The casts among DATE, TIMESTAMP(p), TIME(p) and TIMESTAMP(p) WITH
+    TIME ZONE. A TIMESTAMP becomes an instant read as UTC; a TIMESTAMP
+    WITH TIME ZONE becomes a TIMESTAMP, DATE or TIME by its wall-clock
+    time."""
+    s = src.type
+    d = src.data.to(_I64)
+    if s is DATE:
+        if isinstance(t, TimestampType):
+            return Column(t, d * MS_DAY, src.valid)
+        if isinstance(t, TimestampTZType):
+            return Column(t, d * MS_DAY, src.valid, data2=_zeros(src))
+    elif isinstance(s, TimestampType):
+        if t is DATE:
+            return Column(t, torch.div(d, MS_DAY, rounding_mode="floor")
+                          .to(torch.int32), src.valid)
+        if isinstance(t, TimestampType):
+            return dc_replace(src, type=t)
+        if isinstance(t, TimestampTZType):
+            return Column(t, d, src.valid, data2=_zeros(src))
+    elif isinstance(s, TimestampTZType):
+        if isinstance(t, TimestampTZType):
+            return dc_replace(src, type=t)
+        local = local_millis(src)
+        if isinstance(t, TimestampType):
+            return Column(t, local, src.valid)
+        if t is DATE:
+            return Column(t, torch.div(local, MS_DAY, rounding_mode="floor")
+                          .to(torch.int32), src.valid)
+    elif isinstance(s, TimeType) and isinstance(t, TimeType):
+        return dc_replace(src, type=t)
+    raise NotYetPorted(f"not yet ported: cast {s} -> {t}")
 
 
 def _sketches(t: HyperLogLogType, starts, valid, lens,
@@ -550,7 +698,8 @@ def _sketch_from_wire(src: Column, t: HyperLogLogType,
 def _parser_for(t: Type, safe: bool):
     """varchar -> t for one dictionary value."""
     if not (t is DATE or is_integral(t) or t.name in ("double", "real")
-            or t is BOOLEAN or isinstance(t, DecimalType)):
+            or t is BOOLEAN or isinstance(t, (DecimalType, TimestampType,
+                                              TimeType))):
         raise NotYetPorted(f"not yet ported: cast varchar -> {t}")
 
     def parse(v: str):
@@ -558,6 +707,10 @@ def _parser_for(t: Type, safe: bool):
             if t is DATE:
                 d = datetime.date.fromisoformat(v.strip())
                 return d.toordinal() - datetime.date(1970, 1, 1).toordinal()
+            if isinstance(t, TimestampType):
+                return iso_timestamp_millis(v)
+            if isinstance(t, TimeType):
+                return iso_time_millis(v)
             if is_integral(t):
                 return int(v.strip())
             if t.name in ("double", "real"):
@@ -572,6 +725,31 @@ def _parser_for(t: Type, safe: bool):
                 return None
             raise EvalError(f"Cannot cast '{v}' to {t}") from None
     return parse
+
+
+def _parse_tstz(col: Column, t: TimestampTZType, safe: bool) -> Column:
+    """varchar -> TIMESTAMP WITH TIME ZONE once per dictionary value: the
+    instant and the offset of the text's zone (UTC when it names none)."""
+    ms, offs, nulls = [], [], []
+    for v in col.dictionary.values:
+        try:
+            m, off = iso_timestamp_tz(str(v))
+        except (ValueError, KeyError) as ex:
+            if not safe:
+                raise EvalError(f"Cannot cast '{v}' to {t}: {ex}") from None
+            m, off = 0, None
+            nulls.append(True)
+        else:
+            nulls.append(False)
+        ms.append(m)
+        offs.append(off or 0)
+    valid = col.valid
+    nulls = np.asarray(nulls, dtype=bool)
+    if nulls.any():
+        nv = ~_codes_through(col, nulls)
+        valid = nv if valid is None else valid & nv
+    return Column(t, _codes_through(col, np.asarray(ms, np.int64)), valid,
+                  data2=_codes_through(col, np.asarray(offs, np.int64)))
 
 
 def _parse_long_decimal(col: Column, t: DecimalType, safe: bool) -> Column:
@@ -606,8 +784,12 @@ def _parse_long_decimal(col: Column, t: DecimalType, safe: bool) -> Column:
 
 def _to_varchar(src: Column, t: Type) -> Column:
     """number, decimal, date or boolean -> varchar, row by row on the
-    host."""
+    host; a TIMESTAMP, TIME or zoned value once per distinct value."""
     s = src.type
+    if _is_time(s):
+        lanes = [src.data] + ([src.data2] if isinstance(s, TimestampTZType)
+                              and src.data2 is not None else [])
+        return per_distinct(lanes, src.valid, _time_text(s), t)
     data = src.data.cpu().numpy()
     valid = None if src.valid is None else src.valid.cpu().numpy()
     hi = None if src.data2 is None else src.data2.cpu().numpy()
@@ -639,6 +821,37 @@ def _to_varchar(src: Column, t: Type) -> Column:
            else fmt(data[i]) if hi is None else fmt(data[i], hi[i])
            for i in range(len(data))]
     return _strings_column(out, t, src.device)
+
+
+_NAIVE_EPOCH = datetime.datetime(1970, 1, 1)
+
+
+def naive_datetime(ms: int) -> datetime.datetime:
+    return _NAIVE_EPOCH + datetime.timedelta(milliseconds=ms)
+
+
+def zone_text(off: int) -> str:
+    sign = "+" if off >= 0 else "-"
+    return f"{sign}{abs(off) // 60:02d}:{abs(off) % 60:02d}"
+
+
+def _time_text(s: Type):
+    """The text of one TIMESTAMP, TIME or TIMESTAMP WITH TIME ZONE value
+    (lanes: millis, and the offset minutes of a zoned value)."""
+    if isinstance(s, TimestampTZType):
+        def fmt(ms, off=0):
+            return (naive_datetime(ms + off * 60_000)
+                    .strftime("%Y-%m-%d %H:%M:%S.%f")[:-3]
+                    + " " + zone_text(off))
+    elif isinstance(s, TimestampType):
+        def fmt(ms):
+            return naive_datetime(ms).strftime("%Y-%m-%d %H:%M:%S.%f")[:-3]
+    else:
+        def fmt(ms):
+            ms %= MS_DAY
+            return (f"{ms // 3600000:02d}:{(ms // 60000) % 60:02d}"
+                    f":{(ms // 1000) % 60:02d}.{ms % 1000:03d}")
+    return fmt
 
 
 # ---- boolean logic (Kleene) ----------------------------------------------
@@ -710,11 +923,12 @@ def _cmp(op: str):
                 ma, mb = ranks[ma], ranks[mb]
             data = _cmp_lanes(op, _codes_through(a, ma),
                               _codes_through(b, mb))
-        elif a.data2 is not None or b.data2 is not None:
+        elif key_hi_lane(a) is not None or key_hi_lane(b) is not None:
             data = _cmp_int128(op, a, b)
         else:
             # the planner casts decimals of different scales to one type
-            # before comparing, so decimals compare unscaled lanes
+            # before comparing, so decimals compare unscaled lanes; a
+            # TIMESTAMP WITH TIME ZONE compares its instants
             data = _cmp_lanes(op, a.data, b.data)
         return Column(BOOLEAN, data, valid)
     return h
@@ -871,8 +1085,7 @@ def _cbrt(x: torch.Tensor) -> torch.Tensor:
 def _unary_np(fn):
     def h(e, batch):
         a = eval_expr(e.args[0], batch)
-        return Column(e.type, fn(a.data.to(_F64)).to(torch_dtype(e.type)),
-                      a.valid)
+        return Column(e.type, fn(_f64(a)).to(torch_dtype(e.type)), a.valid)
     return h
 
 
@@ -932,13 +1145,39 @@ def _round(e, batch):
     return Column(t, data.to(torch_dtype(t)), a.valid)
 
 
+def _scale_lanes(c: Column):
+    """(lo, hi) lanes of 10^scale of a decimal column."""
+    lo, hi = i128.split_const(10 ** c.type.scale)
+    return (torch.full_like(c.data, lo, dtype=_I64),
+            torch.full_like(c.data, hi, dtype=_I64))
+
+
+def _decimal_to_integral(c: Column, which: str) -> Column:
+    """floor, ceil or truncate of a decimal: the integer value, kept at
+    the column's scale, on its (lo, hi) lanes."""
+    lo, hi = _lanes128(c)
+    plo, phi = _scale_lanes(c)
+    _, _, rlo, rhi = i128.divmod128_trunc(lo, hi, plo, phi)
+    tlo, thi = i128.sub128(lo, hi, rlo, rhi)
+    if which != "truncate":
+        nz = (rlo != 0) | (rhi != 0)
+        move = nz & ((rhi < 0) if which == "floor" else (rhi >= 0))
+        slo, shi = ((i128.sub128 if which == "floor" else i128.add128)
+                    (tlo, thi, plo, phi))
+        tlo = torch.where(move, slo, tlo)
+        thi = torch.where(move, shi, thi)
+    return Column(c.type, tlo, c.valid,
+                  data2=thi if c.data2 is not None else None)
+
+
 def _floorceil(which):
     def h(e, batch):
         a = eval_expr(e.args[0], batch)
         t = a.type
         if is_integral(t):
             return a
-        _no_hi_lane(which, a)
+        if isinstance(t, DecimalType):
+            return _decimal_to_integral(a, which)
         d = a.data.to(_F64)
         data = torch.floor(d) if which == "floor" else torch.ceil(d)
         return Column(t, data.to(torch_dtype(t)), a.valid)
@@ -947,7 +1186,8 @@ def _floorceil(which):
 
 def _truncate(e, batch):
     a = eval_expr(e.args[0], batch)
-    _no_hi_lane("truncate", a)
+    if isinstance(a.type, DecimalType):
+        return _decimal_to_integral(a, "truncate")
     data = torch.trunc(a.data.to(_F64))
     if is_integral(a.type):
         # a BIGINT near 2^63 rounds to 2^63 as a double
@@ -957,7 +1197,16 @@ def _truncate(e, batch):
 
 def _sign(e, batch):
     a = eval_expr(e.args[0], batch)
-    _no_hi_lane("sign", a)
+    if isinstance(a.type, DecimalType):
+        # -1, 0 or 1 at the column's scale
+        lo, hi = _lanes128(a)
+        plo, phi = _scale_lanes(a)
+        nlo, nhi = i128.neg128(plo, phi)
+        neg, zero = hi < 0, (lo == 0) & (hi == 0)
+        slo = torch.where(neg, nlo, torch.where(zero, 0, plo))
+        shi = torch.where(neg, nhi, torch.where(zero, 0, phi))
+        return Column(a.type, slo, a.valid,
+                      data2=shi if a.data2 is not None else None)
     return Column(a.type, torch.sign(a.data).to(torch_dtype(a.type)),
                   a.valid)
 
@@ -965,8 +1214,7 @@ def _sign(e, batch):
 def _power(e, batch):
     a = eval_expr(e.args[0], batch)
     b = eval_expr(e.args[1], batch)
-    return Column(DOUBLE, torch.pow(a.data.to(_F64), b.data.to(_F64)),
-                  _merge_valid(a, b))
+    return Column(DOUBLE, torch.pow(_f64(a), _f64(b)), _merge_valid(a, b))
 
 
 def _float_pred(fn):
@@ -1051,7 +1299,8 @@ def _regexp_replace(e, batch):
 
 def _string_unary(fn):
     def h(e, batch):
-        return _dict_transform(eval_expr(e.args[0], batch), fn, e.type)
+        return _dict_transform(eval_expr(e.args[0], batch), fn, e.type,
+                               key=fn)
     return h
 
 
@@ -1071,7 +1320,7 @@ def _substr(e, batch):
         def f(v: str):
             i = start - 1 if start > 0 else len(v) + start
             return v[i:] if ln is None else v[i:i + ln]
-        return _dict_transform(a, f, e.type)
+        return _dict_transform(a, f, e.type, key=("substr", start, ln))
     # a per-row start or length: host rows
     rest = [eval_expr(x, batch) for x in e.args[1:]]
     starts = rest[0].data.cpu().numpy()
@@ -1171,12 +1420,19 @@ def _date_interval(op: str):
     return h
 
 
+def days_of(c: Column) -> torch.Tensor:
+    """Days since 1970 of a DATE, or of a timestamp's wall-clock time."""
+    if c.type is DATE:
+        return c.data.to(_I64)
+    if isinstance(c.type, (TimestampType, TimestampTZType)):
+        return torch.div(local_millis(c), MS_DAY, rounding_mode="floor")
+    raise EvalError(f"a date or timestamp is required, not {c.type}")
+
+
 def _extract(field: str):
     def h(e, batch):
         a = eval_expr(e.args[0], batch)
-        if a.type is not DATE:
-            raise NotYetPorted(f"not yet ported: {field}() of {a.type}")
-        return Column(BIGINT, extract_field(a.data, field), a.valid)
+        return Column(BIGINT, extract_field(days_of(a), field), a.valid)
     return h
 
 
@@ -1250,3 +1506,7 @@ _DISPATCH: Dict[str, Callable] = {
     "day_of_year": _extract("day_of_year"), "doy": _extract("day_of_year"),
     "cardinality": _cardinality, "empty_approx_set": _empty_approx_set,
 }
+
+# the date and time functions and the rest of the scalar functions add
+# their entries to _DISPATCH when they load
+from . import scalars, timefns  # noqa: E402,F401

@@ -88,3 +88,21 @@ def add_months(days: torch.Tensor, months: torch.Tensor) -> torch.Tensor:
                                  torch.where(dec, one, nm + 1), one)
     month_len = first_next - days_from_civil(ny, nm, one)
     return days_from_civil(ny, nm, torch.minimum(d, month_len))
+
+
+def date_trunc_days(days: torch.Tensor, unit: str) -> torch.Tensor:
+    """date_trunc(unit, date-as-days) for the units of a day or longer
+    (weeks start on Monday)."""
+    y, m, _ = civil_from_days(days)
+    one = torch.ones_like(m)
+    if unit == "year":
+        return days_from_civil(y, one, one)
+    if unit == "quarter":
+        return days_from_civil(y, _fdiv(m - 1, 3) * 3 + 1, one)
+    if unit == "month":
+        return days_from_civil(y, m, one)
+    if unit == "week":
+        return days.to(_I64) - torch.remainder(days.to(_I64) + 3, 7)
+    if unit == "day":
+        return days.to(_I64)
+    raise ValueError(f"unsupported date_trunc unit for date: {unit}")

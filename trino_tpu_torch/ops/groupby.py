@@ -43,7 +43,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..columnar import Batch, Column, take_clamped
+from ..columnar import Batch, Column, key_hi_lane, take_clamped
 from ..config import capacity_for
 from ..types import (BIGINT, DOUBLE, INTEGER, REAL, DecimalType,
                      HyperLogLogType, Type, is_string)
@@ -183,9 +183,11 @@ def _key_lanes(batch: Batch, key_names: Sequence[str],
     for name in key_names:
         col = batch.column(name)
         col_lanes = equality_lanes(col.data)
-        if col.data2 is not None:
-            # the Int128 high lane takes part in key equality
-            col_lanes = col_lanes + equality_lanes(col.data2)
+        hi = key_hi_lane(col)
+        if hi is not None:
+            # the Int128 high lane takes part in key equality (a zone
+            # lane does not: equal instants group together)
+            col_lanes = col_lanes + equality_lanes(hi)
         if col.valid is not None:
             lanes.append((~col.valid).to(_I64))
             col_lanes = [torch.where(col.valid, u, 0) for u in col_lanes]
@@ -296,8 +298,9 @@ def _distinct_lanes(batch: Batch, agg: AggInput, col: Column,
     if col.valid is not None:
         valid = valid & col.valid
     eq = equality_lanes(col.data)
-    if col.data2 is not None:
-        eq = eq + equality_lanes(col.data2)
+    hi = key_hi_lane(col)
+    if hi is not None:
+        eq = eq + equality_lanes(hi)
     vlanes = [torch.where(valid, u, 0) for u in eq]
     return valid, [(~valid).to(_I64)] + vlanes
 
@@ -357,7 +360,7 @@ def _order_lane(col: Column) -> torch.Tensor:
 
 
 def _no_hi_lane(col: Column, kind: str) -> None:
-    if col.data2 is not None:
+    if key_hi_lane(col) is not None:
         raise NotImplementedError(
             f"{kind} over DECIMAL(p>18) is not supported yet")
 

@@ -41,7 +41,8 @@ from ..session import Session
 from ..sql import ast as A
 from ..types import (BIGINT, BOOLEAN, DATE, DOUBLE, INTEGER, UNKNOWN,
                      VARCHAR, DecimalType, IntervalDayTime,
-                     IntervalYearMonth, TimestampType, Type, VarcharType,
+                     IntervalYearMonth, TimestampType, TimestampTZType,
+                     Type, VarcharType,
                      common_super_type, is_exact_numeric, is_integral,
                      is_numeric, is_string, parse_type)
 
@@ -1874,8 +1875,8 @@ def _plan_binary(self: LogicalPlanner, e: A.BinaryOp,
                                          IntervalYearMonth):
             return Call(f"date_{'add' if op == '+' else 'sub'}_interval",
                         (l, r), DATE)
-        if isinstance(l.type, TimestampType) and r.type in (
-                IntervalDayTime, IntervalYearMonth):
+        if isinstance(l.type, (TimestampType, TimestampTZType)) \
+                and r.type in (IntervalDayTime, IntervalYearMonth):
             return Call(f"ts_{'add' if op == '+' else 'sub'}_interval",
                         (l, r), l.type)
         if l.type is DATE and r.type is DATE and op == "-":
