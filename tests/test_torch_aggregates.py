@@ -341,9 +341,13 @@ def test_multi_argument_distinct_raises_in_both(engines):
 
 
 def test_digest_merge_is_not_yet_ported(engines):
-    with pytest.raises(Exception, match="not yet ported"):
-        engines[1].execute("SELECT merge(d) FROM (SELECT tdigest_agg(x) d "
-                           "FROM (VALUES 1.0E0, 2.0E0) t(x))")
+    """merge of a t-digest, once outside the port, now gives the JAX
+    engine's digest (its base64 text) and quantile."""
+    sql = ("SELECT merge(d), value_at_quantile(merge(d), 0.5e0) FROM "
+           "(SELECT tdigest_agg(x) d FROM (VALUES 1.0E0, 2.0E0) t(x) "
+           "UNION ALL SELECT tdigest_agg(x) d FROM (VALUES 5.0E0) t(x))")
+    jax_runner, port = engines
+    assert port.execute(sql).rows == jax_runner.execute(sql).rows
 
 
 def _mark_distinct_plan(nodes, bigint, varchar):
@@ -494,3 +498,26 @@ def test_group_aggregate_kinds_equal_the_jax_ops(keys, spec, dead):
         got = port_groupby.global_aggregate(pb, _aggs(port_groupby, aggs))
     assert got.names == want.names
     same_rows(got.to_pylist(), want.to_pylist())
+
+
+@pytest.mark.parametrize("catalog", ["tpch", "tpcds"])
+def test_chip_smoke_cpu_checks_side_by_side_equal_one_by_one(catalog):
+    """chip_smoke.py's ``cpu_rows_in_threads`` (its CPU cross-checks, the
+    queries side by side, a runner per thread) gives each query the rows
+    one runner gives it alone, in the order asked, at tiny."""
+    import chip_smoke as cs
+    from trino_tpu_torch.benchmarks.tpcds_queries import TPCDS_QUERIES
+    sqls = ([t.format(schema="tiny") for t in [cs.AGG_STATS_SQL]
+             + cs.AGG_ORDER_SQL + cs.AGG_HLL_SQL + [cs.AGG_WIRE_SQL]]
+            if catalog == "tpch" else
+            [TPCDS_QUERIES[q] for q in (64, 47, 36, 38, 78)])
+
+    def runner():
+        return LocalQueryRunner(Session(catalog=catalog, schema="tiny"),
+                                device="cpu")
+    alone = runner()
+    got = cs.cpu_rows_in_threads(runner, sqls, workers=3)
+    assert len(got) == len(sqls)
+    for sql, (rows, seconds) in zip(sqls, got):
+        assert seconds > 0
+        assert rows == alone.execute(sql).rows, sql

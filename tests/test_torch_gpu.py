@@ -954,3 +954,55 @@ def test_scalar_functions_on_card_match_cpu(cuda):
                                device="cpu")
         got, want = card.execute(sql).rows, cpu.execute(sql).rows
         assert cs.scalar_rows_errors(got, want) == []
+
+
+NESTED_ON_CARD_SQL = [
+    # UNNEST WITH ORDINALITY over a lineitem array, grouped through
+    # grouped_sums
+    "SELECT l_returnflag, l_linestatus, count(*), sum(p), "
+    "sum(CASE WHEN k = 2 THEN p END), max(k) FROM lineitem "
+    "CROSS JOIN UNNEST(ARRAY[l_extendedprice, "
+    "l_extendedprice * (1 - l_discount)]) WITH ORDINALITY AS t(p, k) "
+    "GROUP BY 1, 2 ORDER BY 1, 2",
+    # array_agg per order, through a join, then reduce and other lambdas
+    "SELECT o_orderpriority, count(*), sum(cardinality(items)), "
+    "sum(reduce(items, 0e0, (s, x) -> s + x, s -> s)), "
+    "count_if(any_match(items, x -> x > 100000e0)), "
+    "sum(element_at(array_sort(items), -1)) FROM orders JOIN "
+    "(SELECT l_orderkey AS k, array_agg(l_extendedprice) AS items "
+    "FROM lineitem GROUP BY l_orderkey) li ON o_orderkey = k "
+    "GROUP BY o_orderpriority ORDER BY 1",
+    # map_filter over a MAP of three entries a row
+    "SELECT sum(cardinality(map_filter(MAP(ARRAY['q', 'p', 'd'], "
+    "ARRAY[l_quantity, l_extendedprice, l_discount]), (k, v) -> v > 10e0))) "
+    "FROM lineitem",
+    # array_agg with a FILTER, histogram and map_agg, grouped
+    "SELECT o_orderstatus, array_agg(o_orderkey) FILTER "
+    "(WHERE o_orderkey < 200), histogram(o_orderpriority), "
+    "map_agg(o_orderpriority, o_orderkey) FROM orders GROUP BY 1 ORDER BY 1",
+    # array_join, each distinct array joined once on the host
+    "SELECT o_orderstatus, count(DISTINCT array_join(ARRAY[o_orderpriority, "
+    "o_clerk], '/')), min(array_join(ARRAY[o_shippriority, o_custkey % 7, "
+    "NULL], '-', 'x')) FROM orders GROUP BY 1 ORDER BY 1",
+    # digests built per group in threads, then merged
+    "SELECT o_orderstatus, value_at_quantile(merge(d), 0.5e0) FROM (SELECT "
+    "o_orderstatus, o_orderpriority, tdigest_agg(o_totalprice) d FROM orders "
+    "GROUP BY 1, 2) GROUP BY 1 ORDER BY 1",
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("i", range(len(NESTED_ON_CARD_SQL)))
+def test_nested_columns_on_card_match_cpu(cuda, i):
+    """UNNEST, array_agg, reduce, map_filter, array_join and a digest's
+    merge at tpch.sf1 on the card: the rows equal the engine's on the CPU
+    (doubles within rel 1e-9)."""
+    import chip_smoke as cs
+    from trino_tpu_torch.session import Session
+    sql = NESTED_ON_CARD_SQL[i]
+    got = LocalQueryRunner(Session(catalog="tpch", schema="sf1")) \
+        .execute(sql).rows
+    want = LocalQueryRunner(Session(catalog="tpch", schema="sf1"),
+                            device="cpu").execute(sql).rows
+    assert len(got) == len(want) > 0
+    assert cs.nested_match(got, want)

@@ -130,9 +130,18 @@ def test_live_mask_overrides_prefix():
 
 
 def test_unported_kind_raises():
-    _, pb, keys = _inputs("int", 0)
+    """array_agg, once unported here, now equals the JAX engine's per
+    group (the arrays in the group-sorted row order), with and without a
+    FILTER mask; a kind neither engine has still raises."""
+    tb, pb, keys = _inputs("int", 0)
+    for mask in (None, "m"):
+        want = tpu_group(tb, keys, [TpuAgg("array_agg", "i", mask, "x")])
+        got = group_aggregate(pb, keys, [AggInput("array_agg", "i", mask,
+                                                  "x")])
+        assert got.to_pylist() == want.to_pylist()
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        group_aggregate(pb, keys, [AggInput("array_agg", "i", None, "x")])
+        group_aggregate(pb, keys, [AggInput("no_such_kind", "i", None,
+                                            "x")])
 
 
 DISTINCT_AGGS = [("count_distinct", "v", None), ("count_distinct", "i", "m"),

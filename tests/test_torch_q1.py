@@ -148,8 +148,8 @@ def test_batch_from_pylist_with_nulls_and_decimals():
 
 
 @pytest.mark.parametrize("sql", [
-    "SELECT x FROM UNNEST(ARRAY[1, 2]) AS t(x)",
-    "SELECT split(o_comment, ' ') FROM orders",
+    "SELECT st_point(1.0, 2.0)",
+    "SELECT great_circle_distance(1.0, 2.0, 3.0, 4.0) FROM nation",
     "EXPLAIN ANALYZE SELECT n_name FROM nation ORDER BY n_name OFFSET 3",
     "SELECT try(greatest(n_name, 'B')) FROM nation",
     "SELECT greatest(n_name, 'B') FROM nation",

@@ -341,35 +341,31 @@ def test_errors_raise(port):
 
 # ---- the port's dispatch against the reference's ---------------------------
 
-# the functions of ARRAY, MAP and ROW values (ROADMAP A5), of quantile
-# digests (A5) and of geometries (A8): the only reference names the port
-# leaves out
-CONTAINER_NAMES = {"$array", "element_at", "value_at_quantile",
-                   "values_at_quantiles", "quantile_at_value"}
+# the functions of geometries (ROADMAP A8): the only reference names the
+# port leaves out
 GEO_NAMES = {"st_point", "st_x", "st_y", "st_distance",
              "st_geometryfromtext", "st_astext", "st_contains",
              "great_circle_distance"}
 
 
 def test_dispatch_covers_every_scalar_function_of_the_reference():
-    from trino_tpu.exec import complex as tpu_complex
     from trino_tpu.exec.expr import _DISPATCH as TPU_DISPATCH
     from trino_tpu_torch.exec.expr import _DISPATCH
-    containers = CONTAINER_NAMES | set(tpu_complex.DISPATCH)
     missing = set(TPU_DISPATCH) - set(_DISPATCH)
-    assert missing == (containers | GEO_NAMES) - set(_DISPATCH)
-    # and each of those raises "not yet ported" in the port
-    for name in ("element_at", "split", "array_join", "st_point",
+    assert missing == GEO_NAMES
+    # the container functions are all in (exec/complex.py)
+    for name in ("element_at", "split", "array_join", "$array",
                  "value_at_quantile"):
-        assert name in missing
+        assert name in _DISPATCH
 
 
 @pytest.mark.parametrize("sql", [
     "SELECT split('a.b', '.')", "SELECT array_join(ARRAY['x'], '-')",
     "SELECT regexp_split('a,b', ',')"])
 def test_container_functions_stay_not_yet_ported(port, sql):
-    with pytest.raises(QueryError, match="not yet ported"):
-        port.execute(sql)
+    """Once outside the port, these three now equal the JAX engine."""
+    want = TpuRunner().execute(sql).rows
+    assert port.execute(sql).rows == want
 
 
 def test_keyed_transform_tables_follow_their_dictionary():

@@ -16,6 +16,13 @@ Counterpart of ``trino_tpu/columnar.py``, with the same contract:
   Column of its own, of any length), ``data2`` each row's entry count
   (ops/hll.py). A row gather moves the offsets and counts; ``elements``
   is shared untouched.
+- ARRAY columns have the same layout: ``data`` is each row's int64
+  start into the flat element pool ``elements``, ``data2`` its length.
+  MAP columns add ``elements2``, the flat values beside the keys in
+  ``elements``; a quantile digest (TDIGEST, QDIGEST) is laid out like a
+  MAP of centroid means to weights. A ROW column holds one row-aligned
+  Column per field in ``children``; its ``data`` is an int8 lane that
+  only carries the capacity.
 - A ``Batch`` is named Columns plus a row count. Lane length
   ("capacity") is a power-of-two bucket >= ``num_rows``; rows past
   ``num_rows`` are masked, never trusted. Capacity stays >= 8.
@@ -25,7 +32,6 @@ Counterpart of ``trino_tpu/columnar.py``, with the same contract:
 
 Lanes are tensors on one device. A numpy lane handed to ``Column`` is
 wrapped without a copy as a CPU tensor; ``Batch.to`` moves a batch.
-ARRAY/MAP/ROW columns are not ported yet.
 """
 
 from __future__ import annotations
@@ -38,7 +44,8 @@ import numpy as np
 import torch
 
 from .config import DeviceLike, capacity_for, resolve_device
-from .types import (BOOLEAN, CharType, DecimalType, TimestampTZType, Type,
+from .types import (BOOLEAN, ArrayType, CharType, DecimalType, MapType,
+                    QDigestType, RowType, TDigestType, TimestampTZType, Type,
                     is_string)
 
 NumRows = Union[int, torch.Tensor]
@@ -51,8 +58,18 @@ _TORCH_DTYPES = {
 }
 
 
+def is_nested(typ: Type) -> bool:
+    """ARRAY, MAP and ROW, and the digests laid out as a MAP."""
+    return isinstance(typ, (ArrayType, MapType, RowType, TDigestType,
+                            QDigestType))
+
+
 def torch_dtype(typ: Type) -> torch.dtype:
     """The torch dtype of a type's value lane."""
+    if isinstance(typ, RowType):
+        return torch.int8
+    if isinstance(typ, (ArrayType, MapType)):
+        return torch.int64
     dt = typ.np_dtype
     if dt is None or np.dtype(dt) not in _TORCH_DTYPES:
         raise NotImplementedError(f"not yet ported: lanes of type {typ}")
@@ -185,20 +202,36 @@ def key_hi_lane(col: "Column") -> Optional[torch.Tensor]:
     return col.data2
 
 
+def hi_lane_or_fill(col: "Column") -> torch.Tensor:
+    """The column's high lane; where it has none, a decimal sign-extends
+    its low lane (a negative low lane zero-filled would be off by 2^64)
+    and any other type fills zeros. For concatenations of parts that
+    differ in having one."""
+    if col.data2 is not None:
+        return col.data2
+    if isinstance(col.type, DecimalType):
+        return torch.where(col.data.to(torch.int64) < 0, -1, 0)
+    return torch.zeros(col.capacity, dtype=torch.int64, device=col.device)
+
+
 def take_clamped(lane: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     """``lane[indices]`` with indices clamped into range: the counterpart
     of ``jnp.take(mode="clip")`` (an out-of-range index on CUDA is a
     device assert, so every engine gather clamps first)."""
     n = lane.shape[0]
     idx = indices.to(device=lane.device, dtype=torch.int64)
-    return torch.index_select(lane, 0, idx.clamp(0, max(n - 1, 0)))
+    if n == 0:
+        # an empty pool (no element anywhere) reads as zeros
+        return torch.zeros(idx.shape, dtype=lane.dtype, device=lane.device)
+    return torch.index_select(lane, 0, idx.clamp(0, n - 1))
 
 
 @dataclass(frozen=True)
 class Column:
     """One SQL column: value lane + validity lane (+ dictionary, + hi
-    lane, + the flat entries of a sketch column). Rows beyond the owning
-    Batch's num_rows are garbage."""
+    lane, + the flat pools of a sketch, ARRAY or MAP column, + the field
+    columns of a ROW). Rows beyond the owning Batch's num_rows are
+    garbage."""
 
     type: Type
     data: torch.Tensor
@@ -206,6 +239,8 @@ class Column:
     dictionary: Optional[StringDictionary] = None
     data2: Optional[torch.Tensor] = None
     elements: Optional["Column"] = None
+    elements2: Optional["Column"] = None
+    children: Optional[Tuple["Column", ...]] = None
 
     def __post_init__(self):
         if is_string(self.type) and self.dictionary is None:
@@ -231,23 +266,31 @@ class Column:
         def mv(t):
             return None if t is None else t.to(device,
                                                non_blocking=non_blocking)
+
+        def mvc(c):
+            return None if c is None else c.to(device, non_blocking)
         return replace(self, data=mv(self.data), valid=mv(self.valid),
-                       data2=mv(self.data2),
-                       elements=None if self.elements is None
-                       else self.elements.to(device, non_blocking))
+                       data2=mv(self.data2), elements=mvc(self.elements),
+                       elements2=mvc(self.elements2),
+                       children=None if self.children is None
+                       else tuple(mvc(c) for c in self.children))
 
     def gather(self, indices: torch.Tensor,
                fill_invalid: Optional[torch.Tensor] = None) -> "Column":
         """Row gather with clamped indices; gathered rows where
-        ``fill_invalid`` is True become NULL (outer-join padding). A
-        sketch column's ``elements`` are shared (its offsets moved)."""
+        ``fill_invalid`` is True become NULL (outer-join padding). The
+        flat pools of a sketch, ARRAY or MAP column are shared (its
+        offsets moved); a ROW's fields are gathered with it."""
         def g(t):
             return None if t is None else take_clamped(t, indices)
         valid = g(self.valid)
         if fill_invalid is not None:
             valid = ~fill_invalid if valid is None else valid & ~fill_invalid
         return replace(self, data=g(self.data), valid=valid,
-                       data2=g(self.data2))
+                       data2=g(self.data2),
+                       children=None if self.children is None
+                       else tuple(c.gather(indices, fill_invalid)
+                                  for c in self.children))
 
     def with_dictionary(self, dictionary: "StringDictionary",
                         remap: np.ndarray) -> "Column":
@@ -326,8 +369,36 @@ def _to_lane(values, typ: Type):
     return data, (valid if any_null else None), data2
 
 
+def _offsets(lens: np.ndarray) -> np.ndarray:
+    return (np.cumsum(lens) - lens).astype(np.int64)
+
+
 def column_from_pylist(values: Sequence, typ: Type) -> Column:
-    """Build a CPU Column from python values (tests / VALUES literals)."""
+    """Build a CPU Column from python values (tests / VALUES literals):
+    an ARRAY from lists, a MAP from dicts, a ROW from sequences of its
+    fields' values."""
+    if isinstance(typ, (ArrayType, MapType)):
+        valid = np.asarray([v is not None for v in values], dtype=bool)
+        lens = np.asarray([0 if v is None else len(v) for v in values],
+                          dtype=np.int64)
+        flat = [x for v in values if v is not None
+                for x in (v.items() if isinstance(typ, MapType) else v)]
+        if isinstance(typ, ArrayType):
+            pools = (column_from_pylist(flat or [None], typ.element), None)
+        else:
+            pools = (column_from_pylist([k for k, _ in flat] or [None],
+                                        typ.key),
+                     column_from_pylist([x for _, x in flat] or [None],
+                                        typ.value))
+        return Column(typ, _offsets(lens), None if valid.all() else valid,
+                      None, lens, *pools)
+    if isinstance(typ, RowType):
+        valid = np.asarray([v is not None for v in values], dtype=bool)
+        kids = tuple(column_from_pylist(
+            [None if v is None else v[i] for v in values], ft)
+            for i, (_, ft) in enumerate(typ.fields))
+        return Column(typ, np.zeros(len(values), dtype=np.int8),
+                      None if valid.all() else valid, children=kids)
     if is_string(typ):
         dictionary, codes = StringDictionary.from_strings(list(values))
         valid = np.asarray([v is not None for v in values], dtype=bool)
@@ -421,9 +492,50 @@ class Batch:
         return [list(row) for row in zip(*out_cols)] if out_cols else []
 
 
+def _values(col: Column, n: int) -> list:
+    """The first ``n`` rows of one column as python values."""
+    return [r[0] for r in Batch({"c": col}, n).to_pylist()]
+
+
+def _decode_nested(c: Column, data: np.ndarray, valid: np.ndarray,
+                   lens: np.ndarray, n: int) -> list:
+    """ARRAY rows as lists, MAP rows as dicts: only the pool entries the
+    rows reach are gathered (on the pool's device) and decoded."""
+    lens = np.where(valid, lens.astype(np.int64), 0)
+    offs = _offsets(lens)
+    total = int(lens.sum())
+    owner = np.repeat(np.arange(n, dtype=np.int64), lens)
+    idx = data.astype(np.int64)[owner] + np.arange(total) - offs[owner]
+    idx = torch.from_numpy(idx).to(c.elements.device)
+    keys = _values(c.elements.gather(idx), total)
+    vals = (None if c.elements2 is None
+            else _values(c.elements2.gather(idx), total))
+    out = []
+    for i in range(n):
+        if not valid[i]:
+            out.append(None)
+            continue
+        s, e = int(offs[i]), int(offs[i] + lens[i])
+        out.append(keys[s:e] if vals is None
+                   else dict(zip(keys[s:e], vals[s:e])))
+    return out
+
+
 def _decode(c: Column, data: np.ndarray, valid: np.ndarray,
             hi: Optional[np.ndarray], n: int) -> list:
     t = c.type
+    if isinstance(t, (TDigestType, QDigestType)):
+        from .ops.digest import sketches_to_base64 as digest_base64
+        enc = digest_base64(data, hi, c.elements.data.cpu().numpy(),
+                            c.elements2.data.cpu().numpy())
+        return [enc[i] if valid[i] else None for i in range(n)]
+    if isinstance(t, (ArrayType, MapType)):
+        return _decode_nested(c, data, valid, hi, n)
+    if isinstance(t, RowType):
+        kids = [_values(ch, n) for ch in c.children]
+        return [list(vals) if valid[i] else None
+                for i, vals in enumerate(zip(*kids))] \
+            if kids else [[] for _ in range(n)]
     if is_string(t):
         vals = c.dictionary.values
         col = [str(vals[int(data[i])]) if valid[i] else None
@@ -509,7 +621,9 @@ def _pad(col: Column, cap: int) -> Column:
         return torch.cat([t, torch.zeros(cap - n, dtype=t.dtype,
                                          device=t.device)])
     return replace(col, data=p(col.data), valid=p(col.valid),
-                   data2=p(col.data2))
+                   data2=p(col.data2),
+                   children=None if col.children is None
+                   else tuple(_pad(c, cap) for c in col.children))
 
 
 def pad_batch(batch: Batch, cap: int) -> Batch:
@@ -523,7 +637,9 @@ def empty_batch(schema: Dict[str, Type], device: DeviceLike = None,
     dev = resolve_device(device)
     cols = {}
     for name, typ in schema.items():
-        if is_string(typ):
+        if is_nested(typ):
+            cols[name] = null_column(typ, capacity, dev)
+        elif is_string(typ):
             d, _ = StringDictionary.from_strings([])
             cols[name] = Column(typ, torch.zeros(capacity, dtype=torch.int32,
                                                  device=dev), None, d)
@@ -537,23 +653,45 @@ def empty_batch(schema: Dict[str, Type], device: DeviceLike = None,
     return Batch(cols, 0)
 
 
+def null_column(typ: Type, cap: int, device: torch.device) -> Column:
+    """An all-NULL ARRAY, MAP, ROW or digest column of ``cap`` rows."""
+    if isinstance(typ, (TDigestType, QDigestType)):
+        from .types import DOUBLE
+        pool = column_from_pylist([0.0], DOUBLE)
+        col = Column(typ, np.zeros(1, np.int64), np.zeros(1, bool), None,
+                     np.zeros(1, np.int64), pool, pool)
+    else:
+        col = column_from_pylist([None], typ)
+    return _pad(col, cap).to(device)
+
+
+def map_row_lanes(col: Column, fn) -> Column:
+    """``fn`` over each row-aligned lane (values, validity, high lane, a
+    ROW's fields); the flat pools are shared."""
+    def f(t):
+        return None if t is None else fn(t)
+    # the constructor, not dataclasses.replace: this runs for every
+    # column of every streamed chunk
+    return Column(col.type, f(col.data), f(col.valid), col.dictionary,
+                  f(col.data2), col.elements, col.elements2,
+                  None if col.children is None
+                  else tuple(map_row_lanes(k, fn) for k in col.children))
+
+
 def slice_rows(batch: Batch, lo: int, hi: int) -> Batch:
     """Rows [lo, hi) of ``batch`` copied into lanes of their own, of
     ``capacity_for(hi - lo)`` rows, zero-padded, on the batch's device.
     A stored table is made of such slices: they hold none of the source's
-    padding and keep none of its storage alive. A sketch column's flat
-    entries are shared, as a gather shares them."""
+    padding and keep none of its row lanes alive. The flat pools of a
+    sketch, ARRAY or MAP column are shared, as a gather shares them."""
     n = max(hi - lo, 0)
     cap = capacity_for(max(n, 1), minimum=8)
 
     def lane(t):
-        if t is None:
-            return None
         out = torch.zeros(cap, dtype=t.dtype, device=t.device)
         out[:n].copy_(t[lo:hi])
         return out
-    return Batch({k: replace(c, data=lane(c.data), valid=lane(c.valid),
-                             data2=lane(c.data2))
+    return Batch({k: map_row_lanes(c, lane)
                   for k, c in batch.columns.items()}, n)
 
 

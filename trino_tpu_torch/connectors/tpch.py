@@ -289,6 +289,14 @@ def _line_counts(order_idx: np.ndarray) -> np.ndarray:
     return _randint(_SEED["lineitem"] + 1, order_idx, 1, 7)
 
 
+def _line_numbers(counts: np.ndarray) -> np.ndarray:
+    """1..count for each order, one order after another (int64)."""
+    counts = counts.astype(np.int64)
+    starts = np.cumsum(counts) - counts
+    return np.arange(int(counts.sum()), dtype=np.int64) \
+        - np.repeat(starts, counts) + 1
+
+
 def _order_key(order_idx: np.ndarray) -> np.ndarray:
     """Sparse order keys: 8 used out of every 32 (spec 4.2.3 O_ORDERKEY)."""
     i = order_idx.astype(np.int64)
@@ -677,10 +685,7 @@ class TpchConnector(Connector):
             status = np.empty(n, dtype=np.int8)
             total = np.zeros(n, dtype=np.float64)
             order_rep = np.repeat(idx, counts)
-            line_no = np.concatenate(
-                [np.arange(1, c + 1) for c in counts]) \
-                if n else np.zeros(0, np.int64)
-            lf = _LineFields(order_rep, line_no.astype(np.int64), sf)
+            lf = _LineFields(order_rep, _line_numbers(counts), sf)
             seg = np.repeat(np.arange(n), counts)
             price = lf.extendedprice * (1.0 + lf.tax) * (1.0 - lf.discount)
             np.add.at(total, seg, price)
@@ -717,9 +722,7 @@ class TpchConnector(Connector):
         need = set(columns)
         counts = _line_counts(order_idx)
         order_rep = np.repeat(order_idx, counts)
-        line_no = (np.concatenate([np.arange(1, c + 1) for c in counts])
-                   if len(order_idx) else np.zeros(0, np.int64))
-        lf = _LineFields(order_rep, line_no.astype(np.int64), sf)
+        lf = _LineFields(order_rep, _line_numbers(counts), sf)
         n = len(order_rep)
         S = _SEED["lineitem"]
         cols: Dict[str, Column] = {

@@ -48,7 +48,8 @@ import torch
 
 from ..catalog import CatalogManager
 from ..columnar import (Batch, Column, StringDictionary, batch_from_pylist,
-                        key_hi_lane, pad_batch, take_clamped)
+                        hi_lane_or_fill, is_nested, key_hi_lane, null_column,
+                        pad_batch, take_clamped)
 from ..config import (CONFIG, MemoryLimitExceeded, capacity_for,
                       reserve_bytes)
 from ..ops import compact, int128 as i128, join as join_ops, sort as sort_ops
@@ -61,13 +62,14 @@ from ..plan.nodes import (Aggregate, AggregationNode, AssignUniqueIdNode,
                           JoinClause, JoinNode, LimitNode, MarkDistinctNode,
                           OffsetNode, OutputNode, PlanNode, ProjectNode,
                           SampleNode, SemiJoinNode, SetOpNode, SortNode,
-                          TableScanNode, TopNNode, UnionNode, ValuesNode,
-                          WindowNode)
+                          TableScanNode, TopNNode, UnionNode, UnnestNode,
+                          ValuesNode, WindowNode)
 from ..planner.logical import SemiJoinMultiNode
 from ..rex import Call, InputRef, and_all
 from ..session import Session
-from ..types import (BIGINT, BOOLEAN, DOUBLE, DecimalType, HyperLogLogType,
-                     REAL, is_string)
+from ..types import (BIGINT, BOOLEAN, DOUBLE, DecimalType, QDigestType, REAL,
+                     TDigestType, is_string)
+from .complex import concat_rows, packed_rows, top_k_map_entries
 from .expr import EvalError, eval_expr, eval_predicate
 from .scancache import (cache_memory_bytes, col_bytes, evict_cache_pressure,
                         read_split_cached, read_table_cached)
@@ -168,9 +170,14 @@ class Executor:
 
     def _check_device(self, b: Batch, what: str) -> None:
         dev = self.device
+
+        def lanes(c: Column):
+            yield from (c.data, c.valid, c.data2)
+            for k in (c.elements, c.elements2, *(c.children or ())):
+                if k is not None:
+                    yield from lanes(k)
         for name, c in b.columns.items():
-            for t in (c.data, c.valid, c.data2,
-                      None if c.elements is None else c.elements.data):
+            for t in lanes(c):
                 if t is not None and (t.device.type != dev.type or (
                         dev.index is not None
                         and t.device.index != dev.index)):
@@ -450,6 +457,42 @@ class Executor:
 
     def _exec_WindowNode(self, node: WindowNode) -> Batch:
         return execute_window(self.execute(node.source), node)
+
+    def _exec_UnnestNode(self, node: UnnestNode) -> Batch:
+        """UNNEST: each input row becomes as many rows as its longest
+        array (shorter arrays pad with NULL), by the searchsorted
+        expansion of a join's output; WITH ORDINALITY adds the 1-based
+        position."""
+        src = self.execute(node.source)
+        cap = src.capacity
+        live = src.row_valid()
+        arrs = {o: src.column(i) for o, i in node.unnest.items()}
+        lens = {}
+        count = None
+        for o, c in arrs.items():
+            ln = c.data2.to(torch.int64)
+            if c.valid is not None:
+                ln = torch.where(c.valid, ln, 0)
+            lens[o] = ln
+            count = ln if count is None else torch.maximum(count, ln)
+        count = torch.where(live, count, 0)
+        total = int(count.sum())
+        out_cap = capacity_for(max(total, 1))
+        self._reserve(out_cap, len(node.replicate) + len(arrs) + 1,
+                      "unnest output")
+        incl = torch.cumsum(count, 0)
+        i = torch.arange(out_cap, dtype=torch.int64, device=src.device)
+        p = torch.searchsorted(incl, i, right=True).clamp(0, cap - 1)
+        j = i - (incl - count)[p]
+        cols: Dict[str, Column] = {s: src.column(s).gather(p)
+                                   for s in node.replicate}
+        for o, c in arrs.items():
+            el = c.elements.gather(c.data.to(torch.int64)[p] + j)
+            cols[o] = dc_replace(el, valid=j < lens[o][p] if el.valid is None
+                                 else el.valid & (j < lens[o][p]))
+        if node.ordinality:
+            cols[node.ordinality] = Column(BIGINT, j + 1, None)
+        return Batch(cols, total)
 
     # ------------------------------------------------------------------
     # set operations
@@ -822,10 +865,11 @@ def _null_columns(cols: Dict[str, Column], cap: int,
     """All-NULL columns of the given types, ``cap`` rows each."""
     def zeros(dtype):
         return torch.zeros(cap, dtype=dtype, device=device)
-    return {s: Column(c.type, zeros(c.data.dtype), zeros(torch.bool),
-                      c.dictionary,
-                      None if c.data2 is None else zeros(torch.int64),
-                      c.elements)
+    return {s: null_column(c.type, cap, device) if is_nested(c.type)
+            else Column(c.type, zeros(c.data.dtype), zeros(torch.bool),
+                        c.dictionary,
+                        None if c.data2 is None else zeros(torch.int64),
+                        c.elements)
             for s, c in cols.items()}
 
 
@@ -1010,10 +1054,28 @@ def _lower_aggregates(aggregates: Dict[str, Aggregate], src: Batch):
                                  param=float(b)))
         elif kind == "merge":
             argt = src.column(a.argument).type
-            if not isinstance(argt, HyperLogLogType):
-                raise NotImplementedError(
-                    f"not yet ported: aggregate merge({argt})")
-            phys.append(AggInput("hll_merge", a.argument, a.mask, sym))
+            phys.append(AggInput(
+                "digest_merge" if isinstance(argt, (TDigestType, QDigestType))
+                else "hll_merge", a.argument, a.mask, sym))
+        elif kind in ("tdigest_agg", "qdigest_agg"):
+            phys.append(AggInput(
+                "tdigest" if kind == "tdigest_agg" else "qdigest",
+                a.argument, a.mask, sym, input2=a.argument2, param=a.param))
+        elif kind in ("array_agg", "histogram", "map_union"):
+            phys.append(AggInput(kind, a.argument, a.mask, sym))
+        elif kind in ("map_agg", "multimap_agg"):
+            phys.append(AggInput(kind, a.argument, a.mask, sym,
+                                 input2=a.argument2))
+        elif kind == "numeric_histogram":
+            phys.append(AggInput(kind, a.argument, a.mask, sym,
+                                 input2=a.argument2, param=a.param))
+        elif kind == "approx_most_frequent":
+            # the exact histogram, then each group's k most frequent
+            # entries (the reference approximates with a stream summary;
+            # exact is a correct superset)
+            phys.append(AggInput("histogram", a.argument, a.mask, sym))
+            post[sym] = _amf_post(sym, int(a.param) if a.param is not None
+                                  else 3)
         elif kind == "approx_percentile":
             phys.append(AggInput("percentile", a.argument, a.mask, sym,
                                  param=a.param))
@@ -1067,6 +1129,12 @@ def _lower_aggregates(aggregates: Dict[str, Aggregate], src: Batch):
         else:
             raise NotImplementedError(f"not yet ported: aggregate {kind}")
     return phys, post, extra
+
+
+def _amf_post(sym: str, k: int):
+    def fn(out: Batch) -> Column:
+        return top_k_map_entries(out.column(sym), k)
+    return fn
 
 
 def _true(c: Column) -> torch.Tensor:
@@ -1240,6 +1308,12 @@ def device_concat(parts: Sequence[Batch]) -> Batch:
     for name in parts[0].names:
         cs = [p.column(name) for p in parts]
         first = cs[0]
+        if is_nested(first.type):
+            # ARRAY, MAP, ROW and digests: each part's pools packed to
+            # its live rows, then one after another, offsets moved
+            out = concat_rows(cs, counts, cap)
+            cols[name] = _pin_column(out) if pin else out
+            continue
         datas = [c.data[:n] for c, n in zip(cs, counts)]
         dic: Optional[StringDictionary] = first.dictionary
         if is_string(first.type) and any(c.dictionary is not dic
@@ -1256,8 +1330,8 @@ def device_concat(parts: Sequence[Batch]) -> Batch:
                                for c, n in zip(cs, counts)], cap, pin)
         data2 = None
         if any(c.data2 is not None for c in cs):
-            data2 = _cat_into([_hi_lane_or_fill(c, d)[:n] for c, d, n in
-                               zip(cs, datas, counts)], cap, pin)
+            data2 = _cat_into([hi_lane_or_fill(c)[:n]
+                               for c, n in zip(cs, counts)], cap, pin)
         elements = None
         if first.elements is not None:
             # sketch columns: the parts' entry lanes one after another,
@@ -1269,17 +1343,6 @@ def device_concat(parts: Sequence[Batch]) -> Batch:
         cols[name] = Column(first.type, _cat_into(datas, cap, pin), valid,
                             dic, data2, elements)
     return Batch(cols, total, spilled=spilled)
-
-
-def _hi_lane_or_fill(c: Column, data: torch.Tensor) -> torch.Tensor:
-    """The column's high lane; where a part has none, a decimal
-    sign-extends its low lane (a negative low lane zero-filled would be
-    off by 2^64) and any other type fills zeros."""
-    if c.data2 is not None:
-        return c.data2
-    if isinstance(c.type, DecimalType):
-        return i128.sign_extend(data.to(torch.int64))
-    return torch.zeros_like(data, dtype=torch.int64)
 
 
 def _cat_into(pieces: Sequence[torch.Tensor], cap: int,
@@ -1300,20 +1363,41 @@ def _cat_into(pieces: Sequence[torch.Tensor], cap: int,
 def _to_host(b: Batch, n: int) -> Batch:
     """The live prefix of ``b`` copied to host memory (the spill write),
     into pinned tensors when it comes from a card so that the way back is
-    an asynchronous copy."""
+    an asynchronous copy. A sketch column's entries are shared by its
+    rows and copied whole; the pools of an ARRAY, MAP, ROW or digest
+    column are packed to the live rows first."""
     pin = b.device.type == "cuda"
 
-    def host(t, rows=n):
+    def host(t, rows):
         if t is None:
             return None
         out = torch.empty(rows, dtype=t.dtype, pin_memory=pin)
         return out.copy_(t[:rows])
 
-    def host_elements(e):
-        # a sketch column's entries are shared by its rows: copied whole
-        return None if e is None else dc_replace(
-            e, data=host(e.data, e.data.shape[0]))
-    cols = {s: Column(c.type, host(c.data), host(c.valid), c.dictionary,
-                      host(c.data2), host_elements(c.elements))
+    def col(c: Column, rows: int) -> Column:
+        return dc_replace(
+            c, data=host(c.data, rows), valid=host(c.valid, rows),
+            data2=host(c.data2, rows),
+            elements=None if c.elements is None
+            else col(c.elements, c.elements.capacity),
+            elements2=None if c.elements2 is None
+            else col(c.elements2, c.elements2.capacity),
+            children=None if c.children is None
+            else tuple(col(k, rows) for k in c.children))
+    cols = {s: col(packed_rows(c, n) if is_nested(c.type) else c, n)
             for s, c in b.columns.items()}
     return Batch(cols, n, spilled=True)
+
+
+def _pin_column(c: Column) -> Column:
+    """A host column's lanes in pinned memory."""
+    def pin(t):
+        return None if t is None else t.pin_memory()
+    return dc_replace(c, data=pin(c.data), valid=pin(c.valid),
+                      data2=pin(c.data2),
+                      elements=None if c.elements is None
+                      else _pin_column(c.elements),
+                      elements2=None if c.elements2 is None
+                      else _pin_column(c.elements2),
+                      children=None if c.children is None
+                      else tuple(_pin_column(k) for k in c.children))

@@ -12,12 +12,13 @@ family, the string functions (lower, upper, trim, length, substring,
 concat, strpos, replace, split_part, lpad, ...), date arithmetic with
 day-time and year-month intervals, and the date fields (year, month,
 day, quarter, ... and EXTRACT of them). exec/timefns.py adds the
-TIMESTAMP, TIME and TIMESTAMP WITH TIME ZONE functions and
-exec/scalars.py the rest of the scalar functions (bitwise, digests, URL,
-text, math, VARBINARY codecs, JSON). Anything else (the functions of
-ARRAY, MAP and ROW values, of quantile digests and of geometries) raises
-``NotYetPorted("not yet ported: ...")``, an EvalError that try() lets
-through.
+TIMESTAMP, TIME and TIMESTAMP WITH TIME ZONE functions, exec/scalars.py
+the rest of the scalar functions (bitwise, digests, URL, text, math,
+VARBINARY codecs, JSON) and exec/complex.py the functions of ARRAY, MAP
+and ROW values, the lambdas and the quantile digests' accessors; the
+casts between ARRAY, MAP and ROW types are here. Anything else (the
+functions of geometries) raises ``NotYetPorted("not yet ported: ...")``,
+an EvalError that try() lets through.
 
 A function of a DECIMAL argument that computes in doubles reads the
 decimal's value (``_f64``), not its unscaled lane.
@@ -53,15 +54,16 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from ..columnar import Batch, Column, StringDictionary, key_hi_lane, \
-    take_clamped, torch_dtype
+from ..columnar import Batch, Column, StringDictionary, is_nested, \
+    key_hi_lane, null_column, take_clamped, torch_dtype
 from ..config import capacity_for
 from ..ops import hll
 from ..ops import int128 as i128
 from ..ops.datetime import add_months, extract_field
-from ..rex import Call, CaseExpr, Cast, Const, InputRef, RowExpr
+from ..rex import Call, CaseExpr, Cast, Const, InputRef, Lambda, RowExpr
 from ..types import (BIGINT, BOOLEAN, DATE, DOUBLE, INTEGER, UNKNOWN,
-                     VARCHAR, CharType, DecimalType, HyperLogLogType,
+                     VARCHAR, ArrayType, CharType, DecimalType,
+                     HyperLogLogType, MapType, RowType,
                      IntervalYearMonth, TimestampType, TimestampTZType,
                      TimeType, Type, iso_time_millis, iso_timestamp_millis,
                      iso_timestamp_tz, is_integral, is_string)
@@ -84,6 +86,8 @@ def eval_expr(e: RowExpr, batch: Batch) -> Column:
         return batch.column(e.name)
     if isinstance(e, Const):
         return const_column(e, batch.capacity, batch.device)
+    if isinstance(e, Lambda):
+        raise EvalError("a lambda is only an argument of a function")
     if isinstance(e, Call):
         h = _DISPATCH.get(e.fn)
         if h is None:
@@ -114,6 +118,8 @@ def _full(value, cap: int, dtype: torch.dtype,
 def const_column(e: Const, cap: int, device: torch.device) -> Column:
     t = e.type
     if e.value is None:
+        if is_nested(t):
+            return null_column(t, cap, device)
         invalid = _full(False, cap, torch.bool, device)
         if isinstance(t, HyperLogLogType):
             return _sketches(t, _full(0, cap, _I64, device), invalid,
@@ -484,6 +490,20 @@ def cast_column(src: Column, t: Type, safe: bool = False) -> Column:
         return const_column(Const(None, t), src.capacity, src.device)
     if is_string(s) and is_string(t):
         return dc_replace(src, type=t)
+    if isinstance(t, RowType) and isinstance(s, RowType):
+        if len(t.fields) != len(s.fields):
+            raise EvalError(f"cannot cast {s} to {t}")
+        return dc_replace(src, type=t, children=tuple(
+            cast_column(c, ft, safe)
+            for c, (_, ft) in zip(src.children, t.fields)))
+    if isinstance(t, ArrayType) and isinstance(s, ArrayType):
+        return dc_replace(src, type=t, elements=cast_column(
+            src.elements, t.element, safe))
+    if isinstance(t, MapType) and isinstance(s, MapType):
+        return dc_replace(src, type=t,
+                          elements=cast_column(src.elements, t.key, safe),
+                          elements2=cast_column(src.elements2, t.value,
+                                                safe))
     if isinstance(s, HyperLogLogType) and _stringy(t):
         return _sketch_to_wire(src, t)
     if isinstance(t, HyperLogLogType) and _stringy(s):
@@ -1439,13 +1459,16 @@ def _extract(field: str):
 # ---- HyperLogLog -----------------------------------------------------------
 
 def _cardinality(e, batch):
-    """cardinality(hll): the HLL estimate of each row's sketch."""
+    """cardinality(hll): the HLL estimate of each row's sketch;
+    cardinality(array or map): its length."""
     a = eval_expr(e.args[0], batch)
-    if not isinstance(a.type, HyperLogLogType):
-        raise NotYetPorted(f"not yet ported: cardinality of {a.type}")
-    est = hll.estimate_from_sparse(a.data, a.data2, a.elements.data,
-                                   a.type.bucket_bits)
-    return Column(BIGINT, est, a.valid)
+    if isinstance(a.type, HyperLogLogType):
+        est = hll.estimate_from_sparse(a.data, a.data2, a.elements.data,
+                                       a.type.bucket_bits)
+        return Column(BIGINT, est, a.valid)
+    if a.elements is None:
+        raise EvalError("cardinality requires an array or map")
+    return Column(BIGINT, a.data2.to(_I64), a.valid)
 
 
 def _empty_approx_set(e, batch):
@@ -1507,6 +1530,7 @@ _DISPATCH: Dict[str, Callable] = {
     "cardinality": _cardinality, "empty_approx_set": _empty_approx_set,
 }
 
-# the date and time functions and the rest of the scalar functions add
-# their entries to _DISPATCH when they load
-from . import scalars, timefns  # noqa: E402,F401
+# the date and time functions, the rest of the scalar functions and the
+# functions of ARRAY, MAP, ROW and digest values add their entries to
+# _DISPATCH when they load
+from . import complex, scalars, timefns  # noqa: E402,F401

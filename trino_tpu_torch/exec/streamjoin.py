@@ -46,7 +46,8 @@ from typing import Dict, Iterable, Iterator, List, Optional, Sequence, \
 import numpy as np
 import torch
 
-from ..columnar import Batch, Column, StringDictionary, batch_from_pylist
+from ..columnar import (Batch, Column, StringDictionary, batch_from_pylist,
+                        map_row_lanes)
 from ..config import CONFIG, capacity_for
 from ..plan.nodes import (FilterNode, JoinNode, PlanNode, ProjectNode,
                           TableScanNode)
@@ -174,14 +175,11 @@ def _stage(raw: Batch, n: int) -> Batch:
     from a card (the only copy that makes the way back asynchronous), a
     view when they are already on the host."""
     def host(t):
-        if t is None:
-            return None
         if t.device.type == "cpu":
             return t[:n]
         out = torch.empty(n, dtype=t.dtype, pin_memory=True)
         return out.copy_(t[:n])
-    return Batch({name: Column(c.type, host(c.data), host(c.valid),
-                               c.dictionary, host(c.data2))
+    return Batch({name: map_row_lanes(c, host)
                   for name, c in raw.columns.items()}, n)
 
 
@@ -190,14 +188,9 @@ def _slice_chunk(raw: Batch, assignments: Dict[str, str], lo: int,
     """Rows [lo, hi) of a staged split, renamed to the scan's output
     symbols. The lanes hold exactly these rows: the copy to the device
     pads them to their capacity bucket there."""
-    def cut(t):
-        return None if t is None else t[lo:hi]
-    cols: Dict[str, Column] = {}
-    for sym, col in assignments.items():
-        c = raw.column(col)
-        cols[sym] = Column(c.type, cut(c.data), cut(c.valid), c.dictionary,
-                           cut(c.data2))
-    return Batch(cols, hi - lo)
+    return Batch({sym: map_row_lanes(raw.column(col),
+                                     lambda t: t[lo:hi])
+                  for sym, col in assignments.items()}, hi - lo)
 
 
 def host_scan_chunks(ex, scan: TableScanNode, chunk_cap: int
@@ -302,9 +295,8 @@ def overlap(windows) -> Tuple[int, float, float]:
 
 
 def _map_lanes(b: Batch, fn) -> Batch:
-    return Batch({s: Column(c.type, fn(c.data), fn(c.valid), c.dictionary,
-                            fn(c.data2))
-                  for s, c in b.columns.items()}, b.num_rows)
+    return Batch({s: map_row_lanes(c, fn) for s, c in b.columns.items()},
+                 b.num_rows)
 
 
 def check_interrupt(session) -> None:

@@ -45,12 +45,17 @@ import torch
 
 from ..columnar import Batch, Column, key_hi_lane, take_clamped
 from ..config import capacity_for
-from ..types import (BIGINT, DOUBLE, INTEGER, REAL, DecimalType,
-                     HyperLogLogType, Type, is_string)
+from ..types import (BIGINT, DOUBLE, INTEGER, REAL, T_DIGEST, ArrayType,
+                     DecimalType, HyperLogLogType, MapType, QDigestType,
+                     Type, is_string)
 from . import cuda_groupby
 from . import int128 as i128
 from .compact import mask_to_gather
 from .hashing import equality_lanes, to_signed_order
+from .collections import (grouped_map_union, grouped_multimap_agg,
+                          grouped_numeric_histogram, rows_by_group)
+from .digest import (DEFAULT_COMPRESSION, DEFAULT_QDIGEST_BUDGET,
+                     grouped_digest, grouped_digest_merge)
 from .hll import (DEFAULT_BUCKET_BITS, entries_prefix, grouped_sparse_hll,
                   merge_sparse_host)
 from .sort import lexsort
@@ -85,9 +90,16 @@ FAST_DOMAIN_LIMIT = 64
 _BIT_KINDS = {"bit_and", "bit_or"}
 _FAST_KINDS = {"sum", "count", "count_star", "min", "max",
                "any_value"} | _BIT_KINDS
+# the collection and digest kinds: array_agg and map_agg/histogram on
+# the device from the group-sorted order, the others on the host
+# (ops/collections.py, ops/digest.py) over each group's rows
+_HOST_KINDS = {"map_union", "multimap_agg", "numeric_histogram", "tdigest",
+               "qdigest", "digest_merge"}
+_COLLECTION_KINDS = {"array_agg", "map_agg", "histogram"} | _HOST_KINDS
 # kinds of the general (lexsort) path and of global_aggregate
 _GENERAL_KINDS = _FAST_KINDS | {"count_distinct", "argmin", "argmax",
-                                "percentile", "hll", "hll_merge"}
+                                "percentile", "hll",
+                                "hll_merge"} | _COLLECTION_KINDS
 
 
 def _sum_type(t: Type) -> Type:
@@ -239,6 +251,10 @@ def _segment_agg(batch: Batch, agg: AggInput, seg: _Segments) -> Column:
     col = batch.column(agg.input)
     if agg.kind == "count_distinct":
         return _count_distinct(batch, agg, col, seg)
+    if agg.kind == "array_agg":
+        return _array_agg(batch, agg, col, mask, seg)
+    if agg.kind in ("map_agg", "histogram"):
+        return _map_agg(batch, agg, col, seg)
     if agg.kind == "percentile":
         return _percentile(batch, agg, col, seg)
     if agg.kind in ("argmin", "argmax"):
@@ -254,6 +270,9 @@ def _segment_agg(batch: Batch, agg: AggInput, seg: _Segments) -> Column:
     if agg.kind == "hll_merge":
         return _hll_merge(col, col.data[order], col.data2[order], valid,
                           seg.gid, seg.gcap, group_valid)
+    if agg.kind in _HOST_KINDS:
+        return _host_collection(batch, agg, col, rows_by_group(
+            order, seg.gid, valid, seg.gcap), group_valid)
     if _wide_decimal_agg(col, agg.kind):
         lo, hi = _int128_lanes(col, order)
         return _int128_agg(col, agg.kind, lo, hi, group_valid,
@@ -345,6 +364,120 @@ def _count_distinct(batch: Batch, agg: AggInput, col: Column,
     newval = _changes(tie, order2, changed_k | first) & valid_u[order2]
     data = torch.zeros(seg.gcap, dtype=_I64, device=newval.device)
     return Column(BIGINT, data.index_add_(0, gid2, newval.to(_I64)), None)
+
+
+def _array_agg(batch: Batch, agg: AggInput, col: Column,
+               include: torch.Tensor, seg: _Segments) -> Column:
+    """array_agg: each group's rows are one run of the sorted order, so
+    the pool is the input gathered in that order and a group's array is
+    (first included position, included count). NULL values are
+    collected; FILTER-masked rows are sunk to the end of their run by a
+    re-sort, so that the included rows stay a prefix."""
+    cap = seg.order.shape[0]
+    dev = include.device
+    order, gid, inc = seg.order, seg.gid, include
+    if agg.mask is not None:
+        inc_u = torch.zeros(cap, dtype=torch.bool, device=dev)
+        inc_u[order] = include
+        order, gid, _, _ = _resort(seg.key_lanes, [(~inc_u).to(_I64)],
+                                   seg.live, seg.gcap)
+        inc = inc_u[order]
+    pos = torch.arange(cap, dtype=_I64, device=dev)
+    start = torch.full((seg.gcap,), cap, dtype=_I64, device=dev) \
+        .scatter_reduce_(0, gid, torch.where(inc, pos, cap), "amin")
+    length = torch.zeros(seg.gcap, dtype=_I64, device=dev) \
+        .index_add_(0, gid, inc.to(_I64))
+    return Column(ArrayType(col.type), start.clamp(0, cap - 1), length > 0,
+                  None, length, col.gather(order))
+
+
+def _value_tie_lanes(col: Column, valid_u: torch.Tensor):
+    """A NULL lane, then the value's equality lanes (zero where the row
+    does not count)."""
+    eq = equality_lanes(col.data)
+    if col.data2 is not None:
+        eq = eq + equality_lanes(col.data2)
+    return [(~valid_u).to(_I64)] + [torch.where(valid_u, u, 0) for u in eq]
+
+
+def _map_entries(batch: Batch, agg: AggInput, col: Column, order2, gid2,
+                 newval, valid2, gcap: int) -> Column:
+    """map_agg / histogram from rows sorted by (group, value): each run
+    of one value in one group is one entry, and a group's runs are one
+    range of the entry pools."""
+    cap = order2.shape[0]
+    dev = order2.device
+    pos = torch.arange(cap, dtype=_I64, device=dev)
+    runid = (torch.cumsum(newval.to(_I64), 0) - 1).clamp(0, cap - 1)
+    run_start = torch.full((cap,), cap, dtype=_I64, device=dev) \
+        .scatter_reduce_(0, runid, torch.where(newval, pos, cap), "amin")
+    entry_rows = take_clamped(order2, run_start)
+    first_run = torch.full((gcap,), cap, dtype=_I64, device=dev) \
+        .scatter_reduce_(0, gid2, torch.where(newval, runid, cap), "amin")
+    nentries = torch.zeros(gcap, dtype=_I64, device=dev) \
+        .index_add_(0, gid2, newval.to(_I64))
+    if agg.kind == "histogram":
+        counts = torch.zeros(cap, dtype=_I64, device=dev) \
+            .index_add_(0, runid, valid2.to(_I64))
+        vals, out_t = Column(BIGINT, counts, None), MapType(col.type, BIGINT)
+    else:
+        vcol = batch.column(agg.input2)
+        vals, out_t = vcol.gather(entry_rows), MapType(col.type, vcol.type)
+    return Column(out_t, first_run.clamp(0, cap - 1), nentries > 0, None,
+                  nentries, col.gather(entry_rows), vals)
+
+
+def _map_agg(batch: Batch, agg: AggInput, col: Column,
+             seg: _Segments) -> Column:
+    """map_agg(k, v) / histogram(k), grouped: re-sort by (keys, value)
+    (the count(DISTINCT) sort), then one entry per distinct value."""
+    valid_u = _agg_row_mask(batch, agg, seg.live)
+    if col.valid is not None:
+        valid_u = valid_u & col.valid
+    tie = _value_tie_lanes(col, valid_u)
+    order2, gid2, changed_k, first = _resort(
+        seg.key_lanes, [to_signed_order(x) for x in tie], seg.live, seg.gcap)
+    valid2 = valid_u[order2]
+    newval = _changes(tie, order2, changed_k | first) & valid2
+    return _map_entries(batch, agg, col, order2, gid2, newval, valid2,
+                        seg.gcap)
+
+
+def _merge_budget(col: Column) -> int:
+    """The recompression budget of merge(digest): a QDIGEST carries an
+    accuracy budget (2/accuracy nodes) that a merge must not shrink, so
+    the largest input run is kept."""
+    base = (DEFAULT_QDIGEST_BUDGET if isinstance(col.type, QDigestType)
+            else DEFAULT_COMPRESSION)
+    if col.data2 is not None and col.capacity:
+        base = max(base, int(col.data2.max()))
+    return base
+
+
+def _host_collection(batch: Batch, agg: AggInput, col: Column, groups,
+                     group_valid: torch.Tensor) -> Column:
+    """The collection and digest aggregates built on the host from each
+    group's rows."""
+    scale = (10.0 ** col.type.scale if isinstance(col.type, DecimalType)
+             else None)
+    wcol = batch.column(agg.input2) if agg.input2 else None
+    if agg.kind == "map_union":
+        return grouped_map_union(col, groups, group_valid)
+    if agg.kind == "multimap_agg":
+        return grouped_multimap_agg(col, wcol, groups, group_valid)
+    if agg.kind == "numeric_histogram":
+        return grouped_numeric_histogram(col, groups, group_valid,
+                                         int(agg.param or 2), scale, wcol)
+    if agg.kind == "digest_merge":
+        return grouped_digest_merge(col, groups, group_valid,
+                                    _merge_budget(col))
+    if agg.kind == "tdigest":
+        return grouped_digest(col, groups, group_valid, T_DIGEST,
+                              DEFAULT_COMPRESSION, wcol, scale)
+    budget = (int(2.0 / float(agg.param)) if agg.param
+              else DEFAULT_QDIGEST_BUDGET)
+    return grouped_digest(col, groups, group_valid, QDigestType(col.type),
+                          budget, wcol, scale)
 
 
 def _order_lane(col: Column) -> torch.Tensor:
@@ -805,6 +938,8 @@ def global_aggregate(batch: Batch, aggs: Sequence[AggInput],
             raise NotImplementedError(f"not yet ported: {agg.kind}")
         if agg.kind == "count_distinct":
             out[agg.output] = _global_count_distinct(batch, agg, live)
+        elif agg.kind in _COLLECTION_KINDS:
+            out[agg.output] = _global_collection(batch, agg, live)
         elif agg.kind in _ORDER_KINDS:
             out[agg.output] = _global_ordered(batch, agg, live)
         else:
@@ -847,6 +982,37 @@ def _global_ordered(batch: Batch, agg: AggInput,
     if agg.kind == "hll":
         return _hll(col.data, valid, gid, 1, agg, has)
     return _hll_merge(col, col.data, col.data2, valid, gid, 1, has)
+
+
+def _global_collection(batch: Batch, agg: AggInput,
+                       live: torch.Tensor) -> Column:
+    """The collection and digest aggregates without GROUP BY: one
+    group."""
+    include = _agg_row_mask(batch, agg, live)
+    col = batch.column(agg.input)
+    cap = batch.capacity
+    dev = live.device
+    if agg.kind == "array_agg":
+        # the included rows first, in their order (NULL values stay)
+        order = torch.sort((~include).to(torch.int8), stable=True).indices
+        n = include.sum(dtype=_I64).reshape(1)
+        return Column(ArrayType(col.type), torch.zeros(1, dtype=_I64,
+                                                       device=dev),
+                      n > 0, None, n, col.gather(order))
+    valid = include if col.valid is None else include & col.valid
+    if agg.kind in ("map_agg", "histogram"):
+        tie = _value_tie_lanes(col, valid)
+        order = lexsort([to_signed_order(x) for x in tie])
+        first = torch.arange(cap, device=dev) == 0
+        valid2 = valid[order]
+        newval = _changes(tie[1:], order, first) & valid2
+        return _map_entries(batch, agg, col, order,
+                            torch.zeros(cap, dtype=_I64, device=dev),
+                            newval, valid2, 1)
+    has = valid.any().reshape(1)
+    groups = rows_by_group(torch.arange(cap, device=dev),
+                           torch.zeros(cap, dtype=_I64, device=dev), valid, 1)
+    return _host_collection(batch, agg, col, groups, has)
 
 
 def _global_count_distinct(batch: Batch, agg: AggInput,

@@ -27,7 +27,7 @@ from ..plan.nodes import (AggregationNode, AssignUniqueIdNode,
                           MarkDistinctNode, OffsetNode, OutputNode,
                           PlanNode, ProjectNode, SampleNode, SemiJoinNode,
                           SetOpNode, SortNode, TableScanNode, TopNNode,
-                          UnionNode, ValuesNode, WindowNode)
+                          UnionNode, UnnestNode, ValuesNode, WindowNode)
 from ..matching import Pattern as _Pat
 from ..planner.logical import SemiJoinMultiNode
 from ..rex import Call, Const, InputRef, RowExpr, TRUE
@@ -489,6 +489,14 @@ def _prune(node: PlanNode, needed: Set[str]) -> PlanNode:
     if isinstance(node, MarkDistinctNode):
         child = (needed - {node.marker}) | set(node.keys)
         return dc_replace(node, source=_prune(node.source, child))
+
+    if isinstance(node, UnnestNode):
+        # every array stays (each one's length sets the row count); a
+        # replicated column stays only where a parent reads it
+        keep = tuple(s for s in node.replicate if s in needed)
+        child = set(keep) | set(node.unnest.values())
+        return dc_replace(node, source=_prune(node.source, child),
+                          replicate=keep)
 
     if isinstance(node, AssignUniqueIdNode):
         return dc_replace(node, source=_prune(

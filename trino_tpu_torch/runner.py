@@ -49,9 +49,10 @@ from .session import SESSION_PROPERTIES, Session
 from .sql import ast as A
 from .sql.parser import parse_statement
 from .sql.tokenizer import ParseError
-from .types import (BIGINT, BOOLEAN, DOUBLE, UNKNOWN, VARCHAR, CharType,
-                    DecimalType, Type, VarcharType, default_decimal_for,
-                    is_integral, parse_type)
+from .types import (BIGINT, BOOLEAN, DOUBLE, UNKNOWN, VARCHAR, ArrayType,
+                    CharType, DecimalType, MapType, RowType, Type,
+                    VarcharType, default_decimal_for, is_integral,
+                    parse_type)
 
 
 @dataclass
@@ -731,9 +732,19 @@ def _insert_coercible(src: Type, dst: Type) -> bool:
     integers and decimals to REAL and DOUBLE, REAL to DOUBLE, an integer
     or a decimal to a decimal that keeps its integer digits and its
     scale, a bounded VARCHAR or CHAR to one at least as long (or an
-    unbounded VARCHAR), DATE to TIMESTAMP, and NULL to anything."""
+    unbounded VARCHAR), DATE to TIMESTAMP, and NULL to anything; an
+    ARRAY, MAP or ROW when its parts coerce."""
     if src == dst or src == UNKNOWN:
         return True
+    if isinstance(src, ArrayType) and isinstance(dst, ArrayType):
+        return _insert_coercible(src.element, dst.element)
+    if isinstance(src, MapType) and isinstance(dst, MapType):
+        return (_insert_coercible(src.key, dst.key)
+                and _insert_coercible(src.value, dst.value))
+    if isinstance(src, RowType) and isinstance(dst, RowType):
+        return len(src.fields) == len(dst.fields) and all(
+            _insert_coercible(s, d)
+            for (_, s), (_, d) in zip(src.fields, dst.fields))
     if is_integral(src) and is_integral(dst):
         return _INT_RANK[src.name] <= _INT_RANK[dst.name]
     if (is_integral(src) or isinstance(src, DecimalType)) \
