@@ -39,6 +39,20 @@ unpivot of lineitem and array_agg of each order's line items through
 the orders join, each grouped through grouped_sums, lambdas over the
 arrays, histograms, a map_filter and a ROW field; then t- and q-digests
 at tpch.sf1, the card against the CPU and numpy's exact quantiles.
+``files_sf10`` writes tpch.sf10 lineitem's q1 columns to a Parquet file
+and an ORC file (CREATE TABLE AS into two localfile catalogs, each in a
+temporary directory of its own, with plan validation on) and runs q1 and
+q6 over each copy, cold and warm, against the q1 and q6 phases' rows,
+with each read's wall, decode rate, peak and aggregation route; DROP
+TABLE removes the files, which are gone when the phase ends, failed or
+not (about 5 GB of the temporary directory while it runs). Then
+``jdbc_sf1`` loads tpch.sf1 orders into sqlite behind the jdbc connector
+and checks that a grouped query's domain reaches the remote SQL and its
+rows equal tpch.sf1's. ``geo_sf10`` runs ST_Contains over three polygons
+(one with a hole, one with ten edges), great_circle_distance and
+ST_Distance over tpch.sf10 lineitem, grouped through grouped_sums, cold
+and warm, against a numpy ray cast of separate IEEE steps (the count
+exact) and fsum.
 Every phase prints its wall (``wall``), and ``walls`` lists them.
 The kernel's lines (trino_tpu_torch/bench_grouped_sums.py) time each
 call four ways: ``ms`` back to back as a caller sees it, ``device_ms``
@@ -443,6 +457,7 @@ def phase_q6(runner, cuda_groupby, tpch_mod, device_mod, q6):
          bit_identical=same, result=cold.rows, reference=want, **extra)
     check(ok, "q6 differs from the numpy reference")
     check(same, "q6 differs between runs")
+    return cold.rows
 
 
 def card_lanes(device_mod, table: str, cols, sf: float, n_orders: int,
@@ -2422,6 +2437,354 @@ def phase_dml(runner_mod, session_mod, cuda_groupby, tpch_mod, device_mod,
     del runner
 
 
+# ---- files_sf10: lineitem through Parquet and ORC files ----------------
+
+FILES_SCHEMA = "sf10"
+FILES_ROWS = 60_007_494         # tpch.sf10 lineitem
+FILES_WARM_REPS = 2
+FILES_CATALOGS = (("pq", "parquet"), ("orc", "orc"))
+# the two copies of Q1_COLS at sf10 take about 46 and 39 B a row
+FILES_ROOM_BYTES = 6 << 30
+JDBC_SCHEMA = "sf1"
+JDBC_COLS = ["o_orderkey", "o_custkey", "o_totalprice", "o_orderpriority"]
+JDBC_SQL = ("SELECT o_orderpriority, count(*), sum(o_totalprice) FROM {t} "
+            "WHERE o_custkey BETWEEN 1000 AND 60000 GROUP BY 1 ORDER BY 1")
+
+
+class ReadClock:
+    """Times a connector's read_split (file to lanes on the card): the
+    seconds and the splits since ``reset``."""
+
+    def __init__(self, conn):
+        self.inner = conn.read_split
+        conn.read_split = self.read
+        self.reset()
+
+    def reset(self):
+        self.s = 0.0
+        self.splits = 0
+        self.rows = 0
+
+    def read(self, split, columns):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = self.inner(split, columns)
+        torch.cuda.synchronize()
+        self.s += time.perf_counter() - t0
+        self.splits += 1
+        self.rows += batch.num_rows_host()
+        return batch
+
+
+def route_of(result, shapes) -> dict:
+    """How an aggregation ran: streamed (chunks by operator) or not, and
+    grouped_sums' launches by (rows, lanes, groups)."""
+    return {"streamed_ops": dict(result.stream_ops),
+            "stream_chunks": result.stream_chunks,
+            "grouped_sums_shapes": [[*k, v] for k, v in sorted(
+                shapes.items())]}
+
+
+def files_query(step: str, runner, sql: str, cuda_groupby, clock, want,
+                n_file: int, must_launch: bool):
+    """A query over a file table, cold then FILES_WARM_REPS warm: each
+    run's wall, read wall, decode rate over the file's rows, peak and
+    route; its rows against ``want`` (integers and strings exact,
+    doubles within SUM_REL)."""
+    runs = []
+    result = None
+    for rep in range(1 + FILES_WARM_REPS):
+        clock.reset()
+        torch.cuda.reset_peak_memory_stats()
+        if rep == 0:
+            res, wall, launches = cold_run(f"files_sf10_{step}", runner,
+                                           sql, cuda_groupby)
+            shapes = dict(_COLD["last"])
+            result = res
+        else:
+            cuda_groupby.LAUNCHES = 0
+            t0 = time.perf_counter()
+            res = runner.execute(sql)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = cuda_groupby.LAUNCHES
+            shapes = {}
+            check(res.rows == result.rows,
+                  f"files_sf10: {step} warm rows differ from cold")
+        runs.append({"run": "cold" if rep == 0 else "warm", "wall_s": wall,
+                     "read_s": clock.s, "splits": clock.splits,
+                     "rows_after_pushdown": clock.rows,
+                     "decode_rows_per_s": n_file / clock.s if clock.s
+                     else None,
+                     "peak_allocated_gb": torch.cuda.max_memory_allocated()
+                     / 1e9,
+                     "grouped_sums_launches": launches,
+                     **route_of(res, shapes)})
+    ok = rows_match(result.rows, want)
+    emit("files_sf10", step=step, file_rows=n_file, runs=runs,
+         rows=len(result.rows), matches_tpch_sf10=ok)
+    check(ok, f"files_sf10: {step} rows differ from the tpch.sf10 phase: "
+          f"{result.rows} against {want}")
+    if must_launch:
+        check(runs[0]["grouped_sums_launches"] >= 1,
+              f"files_sf10: {step} did not launch grouped_sums")
+    return runs
+
+
+def phase_files(runner_mod, session_mod, cuda_groupby, q1_sql, q1_rows,
+                q6_sql, q6_rows):
+    """files_sf10: CREATE TABLE AS of tpch.sf10 lineitem's q1 columns into
+    a Parquet file and an ORC file (two localfile catalogs, each in a
+    temporary directory of its own), q1 and q6 over each copy against
+    the tpch.sf10 phases' rows, then DROP TABLE; the files are gone when
+    the phase ends, failed or not. Then jdbc_sf1."""
+    import os
+    import shutil
+    import tempfile
+    from trino_tpu_torch.connectors.localfile import LocalFileConnector
+    free = shutil.disk_usage(tempfile.gettempdir()).free
+    emit("files_sf10", step="room", tmp=tempfile.gettempdir(),
+         free_bytes=free, needed_bytes=FILES_ROOM_BYTES)
+    check(free >= FILES_ROOM_BYTES, f"files_sf10: {free} bytes free in "
+          f"{tempfile.gettempdir()}, {FILES_ROOM_BYTES} needed")
+    runner = runner_mod.LocalQueryRunner(
+        session_mod.Session(catalog="tpch", schema=FILES_SCHEMA), DEVICE)
+    runner.session.set("plan_validation", True)
+    roots, clocks = {}, {}
+    try:
+        for cat, fmt in FILES_CATALOGS:
+            roots[cat] = tempfile.mkdtemp(prefix=f"files_sf10_{cat}_")
+            conn = LocalFileConnector(roots[cat], DEVICE)
+            conn.write_format = fmt
+            runner.catalogs.register(cat, conn)
+            clocks[cat] = ReadClock(conn)
+        cols = ", ".join(Q1_COLS)
+        for cat, fmt in FILES_CATALOGS:
+            conn = runner.catalogs.connector(cat)
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = runner.execute(f"CREATE TABLE {cat}.default.li AS SELECT "
+                                 f"{cols} FROM tpch.{FILES_SCHEMA}.lineitem")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            path = conn._path_of("li")
+            n = res.update_count
+            emit("files_sf10", step=f"{cat}_ctas", format=fmt, wall_s=wall,
+                 rows=n, file_bytes=os.path.getsize(path),
+                 bytes_per_row=os.path.getsize(path) / max(n, 1),
+                 write_rows_per_s=n / wall,
+                 peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+            check(n == FILES_ROWS, f"files_sf10: {cat} CTAS wrote {n} rows")
+        for cat, fmt in FILES_CATALOGS:
+            table = f"{cat}.default.li"
+            q1 = q1_sql.replace("lineitem", table)
+            q6 = q6_sql.replace("lineitem", table)
+            check(q1 != q1_sql and q6 != q6_sql,
+                  "files_sf10: a query's text names no lineitem")
+            files_query(f"{cat}_q1", runner, q1, cuda_groupby, clocks[cat],
+                        q1_rows, FILES_ROWS, True)
+            files_query(f"{cat}_q6", runner, q6, cuda_groupby, clocks[cat],
+                        q6_rows, FILES_ROWS, False)
+        for cat, _ in FILES_CATALOGS:
+            runner.execute(f"DROP TABLE {cat}.default.li")
+            check(not os.listdir(roots[cat]),
+                  f"files_sf10: DROP TABLE left files in {cat}")
+        emit("files_sf10", step="dropped", plan_validation=True)
+    finally:
+        for root in roots.values():
+            shutil.rmtree(root, ignore_errors=True)
+    del runner
+    free_device()
+    phase_jdbc(runner_mod, session_mod, cuda_groupby)
+
+
+def phase_jdbc(runner_mod, session_mod, cuda_groupby):
+    """jdbc_sf1: tpch.sf1 orders' four columns loaded into an in-memory
+    sqlite database behind the jdbc connector; a grouped query with a
+    range on o_custkey, whose domain must reach the remote SQL, equals
+    the same query over tpch.sf1.orders."""
+    from trino_tpu_torch.connectors.jdbc import SqliteConnector
+    runner = runner_mod.LocalQueryRunner(
+        session_mod.Session(catalog="tpch", schema=JDBC_SCHEMA), DEVICE)
+    t0 = time.perf_counter()
+    rows = runner.execute(f"SELECT {', '.join(JDBC_COLS)} FROM "
+                          f"tpch.{JDBC_SCHEMA}.orders").rows
+    conn = SqliteConnector(":memory:", "public", DEVICE)
+    conn.execute_remote("CREATE TABLE orders (o_orderkey BIGINT, o_custkey "
+                        "BIGINT, o_totalprice DOUBLE, o_orderpriority TEXT)")
+    conn.load_rows("INSERT INTO orders VALUES (?, ?, ?, ?)", rows)
+    load_s = time.perf_counter() - t0
+    runner.catalogs.register("lite", conn)
+    res, wall, launches = cold_run("jdbc_sf1", runner,
+                                   JDBC_SQL.format(t="lite.public.orders"),
+                                   cuda_groupby)
+    remote, params = conn.last_remote
+    want = runner.execute(
+        JDBC_SQL.format(t=f"tpch.{JDBC_SCHEMA}.orders")).rows
+    ok = rows_match(res.rows, want)
+    pushed = ('"o_custkey" >= ?' in remote and '"o_custkey" <= ?' in remote
+              and params[:2] == [1000, 60000])
+    emit("jdbc_sf1", orders_rows=len(rows), load_s=load_s, wall_s=wall,
+         remote_sql=remote, remote_params=params, domain_pushed=pushed,
+         grouped_sums_launches=launches, rows=res.rows,
+         matches_tpch_sf1=ok)
+    check(pushed, f"jdbc_sf1: the domain did not reach the remote SQL: "
+          f"{remote} {params}")
+    check(ok, f"jdbc_sf1: rows {res.rows} differ from tpch.sf1's {want}")
+    del runner, conn, rows
+
+
+# ---- geo_sf10: the geometry functions over lineitem -----------------------
+
+GEO_SCHEMA = "sf10"
+GEO_WARM_REPS = 1
+GEO_POLYGONS = {
+    "AIR": "POLYGON ((25 2, 30 18, 48 20, 34 30, 40 48, 25 37, 10 48, "
+           "16 30, 2 20, 20 18, 25 2))",
+    "MAIL": "POLYGON ((5 5, 45 5, 45 45, 5 45, 5 5), (15 15, 35 15, "
+            "35 35, 15 35, 15 15))",
+}
+GEO_ELSE = "POLYGON ((0 0, 30 0, 30 30, 0 30, 0 0))"
+GEO_SQL = (
+    "SELECT l_returnflag, l_linestatus, count(*) AS n, "
+    "sum(great_circle_distance(l_discount * 800, l_tax * 2000 - 80, "
+    "40.64, -73.78)) AS km, "
+    "sum(ST_Distance(ST_Point(l_quantity, l_discount * 500), "
+    "ST_Point(25.0, 25.0))) AS d "
+    "FROM lineitem "
+    "WHERE ST_Contains(ST_GeometryFromText(CASE l_shipmode "
+    + " ".join(f"WHEN '{m}' THEN '{p}'" for m, p in GEO_POLYGONS.items())
+    + f" ELSE '{GEO_ELSE}' END), "
+    "ST_Point(l_quantity, l_discount * 500)) "
+    "GROUP BY l_returnflag, l_linestatus")
+GEO_COLS = ["l_returnflag", "l_linestatus", "l_quantity", "l_discount",
+            "l_tax", "l_shipmode"]
+
+
+def geo_lanes(tpch_mod, device_mod, schema: str, device=DEVICE):
+    """lineitem's GEO_COLS at ``schema`` as the device generates them, on
+    the host: (lanes, dictionaries, rows)."""
+    sf = tpch_mod.SCHEMAS[schema]
+    return card_lanes(device_mod, "lineitem", GEO_COLS, sf,
+                      tpch_mod.table_rows("orders", sf), device)
+
+
+def rings_of(wkt: str):
+    """A POLYGON's rings as (xs, ys) float64 arrays."""
+    import re
+    body = wkt[wkt.index("(") + 1:wkt.rindex(")")]
+    out = []
+    for ring in re.findall(r"\(([^()]*)\)", body):
+        pts = np.asarray([[float(v) for v in p.split()]
+                          for p in ring.split(",")], np.float64)
+        out.append((pts[:, 0], pts[:, 1]))
+    return out
+
+
+def ray_cast_np(px, py, wkt: str) -> np.ndarray:
+    """The even-odd rule over every ring, each step one IEEE operation:
+    px < (xj - xi) * (py - yi) / (yj - yi) + xi."""
+    inside = np.zeros(len(px), bool)
+    for xs, ys in rings_of(wkt):
+        for i in range(len(xs) - 1):
+            xi, yi, xj, yj = xs[i], ys[i], xs[i + 1], ys[i + 1]
+            if yi == yj:
+                continue
+            t = np.multiply(py - yi, xj - xi)
+            np.divide(t, yj - yi, out=t)
+            np.add(t, xi, out=t)
+            inside ^= ((yi > py) != (yj > py)) & (px < t)
+    return inside
+
+
+def geo_reference(lanes, dicts):
+    """GEO_SQL's rows with numpy alone: the count exact, the sums by
+    fsum. The per-row lanes are computed a range of rows a thread."""
+    from concurrent.futures import ThreadPoolExecutor
+    n = len(lanes["l_quantity"])
+    inside = np.zeros(n, bool)
+    km = np.empty(n)
+    d = np.empty(n)
+    polygons = [GEO_POLYGONS.get(name, GEO_ELSE)
+                for name in dicts["l_shipmode"]]
+    rad = math.pi / 180
+    p2, l2 = 40.64 * rad, -73.78 * rad
+
+    def rows(lo: int, hi: int) -> None:
+        qty = lanes["l_quantity"][lo:hi]
+        py = lanes["l_discount"][lo:hi] * 500.0
+        mode = lanes["l_shipmode"][lo:hi]
+        for code, wkt in enumerate(polygons):
+            sel = mode == code
+            if sel.any():
+                inside[lo:hi][sel] = ray_cast_np(qty[sel], py[sel], wkt)
+        p1 = lanes["l_discount"][lo:hi] * 800.0 * rad
+        l1 = (lanes["l_tax"][lo:hi] * 2000.0 - 80.0) * rad
+        h = (np.sin((p2 - p1) / 2) ** 2
+             + np.cos(p1) * np.cos(p2) * np.sin((l2 - l1) / 2) ** 2)
+        km[lo:hi] = 2 * 6371.01 * np.arcsin(np.sqrt(np.clip(h, 0.0, 1.0)))
+        d[lo:hi] = np.sqrt((qty - 25.0) ** 2 + (py - 25.0) ** 2)
+
+    step = 1 << 22
+    with ThreadPoolExecutor(8) as ex:
+        for f in [ex.submit(rows, lo, min(lo + step, n))
+                  for lo in range(0, n, step)]:
+            f.result()
+    out = []
+    for names, m in groups_of(lanes, dicts, ["l_returnflag",
+                                             "l_linestatus"]):
+        m = m & inside
+        if m.any():
+            out.append(names + [int(m.sum()), fsum(km[m]), fsum(d[m])])
+    return out
+
+
+def geo_rows_errors(got, want) -> list:
+    """What differs between GEO_SQL's rows and the reference's: keys and
+    counts exactly, the sums beyond SUM_REL."""
+    if len(got) != len(want):
+        return [f"{len(got)} rows, reference {len(want)}"]
+    errs = []
+    for g, w in zip(got, want):
+        if g[:3] != w[:3]:
+            errs.append(f"{g[:3]} against {w[:3]}")
+        for a, b in zip(g[3:], w[3:]):
+            if abs(a - b) > SUM_REL * abs(b):
+                errs.append(f"{g[:2]}: {a} against {b}")
+    return errs
+
+
+def phase_geo(runner_mod, session_mod, cuda_groupby, tpch_mod, device_mod):
+    """geo_sf10: GEO_SQL over tpch.sf10 lineitem, cold and warm, against
+    numpy over the card's lanes: the count exact, the sums within
+    SUM_REL of fsum."""
+    runner = runner_mod.LocalQueryRunner(
+        session_mod.Session(catalog="tpch", schema=GEO_SCHEMA), DEVICE)
+    sql = GEO_SQL + " ORDER BY 1, 2"
+    cold, warm, cold_s, warm_s, peak, launches = run_timed(
+        "geo_sf10", runner, sql, cuda_groupby, GEO_WARM_REPS)
+    del runner
+    free_device()
+    t0 = time.perf_counter()
+    lanes, dicts, n = geo_lanes(tpch_mod, device_mod, GEO_SCHEMA, DEVICE)
+    want = geo_reference(lanes, dicts)
+    ref_s = time.perf_counter() - t0
+    errs = geo_rows_errors(cold.rows, want)
+    same = all(w.rows == cold.rows for w in warm)
+    emit("geo_sf10", schema=f"tpch.{GEO_SCHEMA}", lineitem_rows=n,
+         inside=sum(r[2] for r in want), cold_s=cold_s, warm_s=warm_s,
+         warm_rows_per_s=n / warm_s, max_memory_allocated=peak,
+         grouped_sums_launches=launches, reference_s=ref_s,
+         matches_numpy_reference=not errs, errors=errs[:5],
+         same_rows_every_run=same, rows=cold.rows,
+         **route_of(cold, dict(_COLD["last"])))
+    check(launches >= 1, "geo_sf10 did not launch grouped_sums")
+    check(not errs, f"geo_sf10 differs from numpy: {errs[:5]}")
+    check(same, "geo_sf10 rows differ between runs")
+
+
 T0 = time.perf_counter()
 WALLS: dict = {}
 
@@ -2467,8 +2830,8 @@ def main() -> int:
             session_mod.Session(catalog="tpch", schema=SCHEMA))
         walled("q3", phase_q3, runner, cuda_groupby, tpch_mod, device_mod,
                TPCH_QUERIES[3])
-        walled("q6", phase_q6, runner, cuda_groupby, tpch_mod, device_mod,
-               TPCH_QUERIES[6])
+        q6_rows = walled("q6", phase_q6, runner, cuda_groupby, tpch_mod,
+                         device_mod, TPCH_QUERIES[6])
         walled("q12", phase_query, "q12", runner, cuda_groupby, tpch_mod,
                device_mod, TPCH_QUERIES[12], q12_reference, 3)
         walled("q14", phase_query, "q14", runner, cuda_groupby, tpch_mod,
@@ -2495,6 +2858,13 @@ def main() -> int:
         free_device()
         walled("dml_sf10", phase_dml, runner_mod, session_mod, cuda_groupby,
                tpch_mod, device_mod, TPCH_QUERIES[1], rows)
+        free_device()
+        walled("files_sf10", phase_files, runner_mod, session_mod,
+               cuda_groupby, TPCH_QUERIES[1], rows, TPCH_QUERIES[6],
+               q6_rows)
+        free_device()
+        walled("geo_sf10", phase_geo, runner_mod, session_mod, cuda_groupby,
+               tpch_mod, device_mod)
         free_device()
         walled("complex_sf10", phase_complex, runner_mod, session_mod,
                cuda_groupby, tpch_mod, device_mod)

@@ -1006,3 +1006,101 @@ def test_nested_columns_on_card_match_cpu(cuda, i):
                             device="cpu").execute(sql).rows
     assert len(got) == len(want) > 0
     assert cs.nested_match(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["parquet", "orc"])
+def test_file_round_trip_from_card_lanes(cuda, tmp_path, fmt):
+    """Card lanes to a file and back to card lanes: the same rows, the
+    same bytes as the file written from the CPU engine's lanes, and every
+    lane read back on the card."""
+    from trino_tpu_torch.connectors.localfile import LocalFileConnector
+    from trino_tpu_torch.formats.orc import read_orc
+    from trino_tpu_torch.formats.parquet import read_parquet
+    sql = ("CREATE TABLE files.default.li AS SELECT l_orderkey, "
+           "l_quantity, l_returnflag, l_linestatus, l_shipdate, l_comment "
+           "FROM tpch.tiny.lineitem")
+    paths = []
+    for dev in ("cuda", "cpu"):
+        root = tmp_path / dev
+        root.mkdir()
+        conn = LocalFileConnector(str(root), dev)
+        conn.write_format = fmt
+        r = LocalQueryRunner(device=dev)
+        r.catalogs.register("files", conn)
+        r.execute(sql)
+        paths.append(root / f"li.{fmt}")
+    assert paths[0].read_bytes() == paths[1].read_bytes()
+    read = read_parquet if fmt == "parquet" else read_orc
+    card = read(str(paths[0]), device="cuda")
+    for col in card.columns.values():
+        assert col.data.device.type == "cuda"
+    assert card.to_pylist() == read(str(paths[0]), device="cpu").to_pylist()
+    q = ("SELECT l_returnflag, count(*), sum(l_quantity), max(l_comment) "
+         "FROM files.default.li GROUP BY 1 ORDER BY 1")
+    rows = []
+    for dev in ("cuda", "cpu"):
+        conn = LocalFileConnector(str(tmp_path / dev), dev)
+        r = LocalQueryRunner(device=dev)
+        r.catalogs.register("files", conn)
+        rows.append(r.execute(q).rows)
+    assert rows[0] == rows[1]
+
+
+_GEO_POLYS = [
+    "POLYGON ((0 0, 10 0, 10 10, 0 10, 0 0), (4 4, 6 4, 6 6, 4 6, 4 4))",
+    "POLYGON ((0 0, 10 5, 4 12, -3 6, 0 0), (1 5, 3 5, 2 7, 1 5))",
+    "POLYGON ((25 2, 30 18, 48 20, 34 30, 40 48, 25 37, 10 48, 16 30, "
+    "2 20, 20 18, 25 2))"]
+
+
+@pytest.mark.gpu
+def test_geometry_on_card_matches_cpu(cuda):
+    """ST_Contains on the card gives the CPU run's booleans exactly,
+    points on edges and vertices included; the distances agree within
+    rel 1e-9."""
+    from trino_tpu_torch.testing import TestingConnector
+    from trino_tpu_torch.types import BIGINT, DOUBLE
+    rng = np.random.default_rng(9)
+    n = 20_000
+    xs = rng.uniform(-5, 50, n)
+    ys = rng.uniform(-5, 50, n)
+    t = rng.integers(0, 6, n // 2).astype(np.float64)
+    xs[: n // 4], ys[: n // 4] = 2 * t[: n // 4], t[: n // 4]
+    xs[n // 4: n // 2] = rng.integers(0, 11, n // 4)
+    ys[n // 4: n // 2] = np.where(t[n // 4:] > 2, 10.0, 4.0)
+    rows = [{"id": i, "x": float(x), "y": float(y)}
+            for i, (x, y) in enumerate(zip(xs, ys))]
+    case = " ".join(f"WHEN {k} THEN '{p}'" for k, p in enumerate(_GEO_POLYS))
+    sql = ("SELECT id, ST_Contains(ST_GeometryFromText(CASE id % 3 "
+           f"{case} END), ST_Point(x, y)), ST_Distance(ST_Point(x, y), "
+           "ST_Point(3.5, 2.25)), great_circle_distance(y, x, 40.64, "
+           "-73.78), ST_AsText(ST_Point(x, y)) FROM g.default.pts "
+           "ORDER BY id")
+    got = []
+    for dev in ("cuda", "cpu"):
+        conn = TestingConnector(device=dev)
+        conn.add_table("pts", {"id": BIGINT, "x": DOUBLE, "y": DOUBLE},
+                       rows)
+        r = LocalQueryRunner(device=dev)
+        r.catalogs.register("g", conn)
+        got.append(r.execute(sql).rows)
+    card, cpu = got
+    assert [r[1] for r in card] == [r[1] for r in cpu]
+    assert [r[4] for r in card] == [r[4] for r in cpu]
+    for a, b in zip(card, cpu):
+        assert a[2] == pytest.approx(b[2], rel=SUM_REL)
+        assert a[3] == pytest.approx(b[3], rel=SUM_REL)
+
+
+@pytest.mark.gpu
+def test_plan_validation_on_card_q1(cuda):
+    """q1 with the sanity checker after every optimizer pass: the rows
+    of the run without it."""
+    from trino_tpu_torch.obs.metrics import PLAN_VALIDATIONS
+    r = LocalQueryRunner()
+    want = r.execute(TPCH_QUERIES[1]).rows
+    before = PLAN_VALIDATIONS.value()
+    r.session.set("plan_validation", True)
+    assert r.execute(TPCH_QUERIES[1]).rows == want
+    assert PLAN_VALIDATIONS.value() > before

@@ -466,10 +466,18 @@ def test_explain_analyze_is_not_yet_ported():
 
 
 def test_access_control_is_not_yet_ported():
+    """Access control was outside the statement slice; the runner now
+    consults it (security.py) before a write and the planner before a
+    read, with the reference's message."""
+    from trino_tpu_torch.security import AccessRule, RuleBasedAccessControl
     port = LocalQueryRunner(device="cpu")
-    port.catalogs.access_control = object()
-    with pytest.raises(QueryError, match="not yet ported: access control"):
+    port.catalogs.access_control = RuleBasedAccessControl(
+        [AccessRule(table=r"tpch\..*", privileges=("select",))])
+    with pytest.raises(QueryError, match="Access Denied: Cannot create "
+                       "table memory.default.t"):
         port.execute("CREATE TABLE memory.default.t (x bigint)")
+    assert port.execute("SELECT count(*) FROM tpch.tiny.nation").rows \
+        == [[25]]
 
 
 # ---- TABLESAMPLE -----------------------------------------------------------

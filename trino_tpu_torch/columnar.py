@@ -6,6 +6,9 @@ Counterpart of ``trino_tpu/columnar.py``, with the same contract:
   (``valid``; None means every live row is non-null), for string types a
   host-side ``StringDictionary`` whose int32 codes are the lane, and for
   DECIMAL(p>18) a high int64 lane (``data2``).
+- A GEOMETRY column is a POINT column, float64 x in ``data`` and y in
+  ``data2``, or dictionary-coded WKT text like a string column
+  (ops/geo.py).
 - DATE is int32 days since 1970-01-01; TIMESTAMP(p) and TIME(p) are int64
   milliseconds (since 1970-01-01 and of the day). TIMESTAMP(p) WITH TIME
   ZONE is the UTC instant in int64 milliseconds with the zone's offset
@@ -44,9 +47,9 @@ import numpy as np
 import torch
 
 from .config import DeviceLike, capacity_for, resolve_device
-from .types import (BOOLEAN, ArrayType, CharType, DecimalType, MapType,
-                    QDigestType, RowType, TDigestType, TimestampTZType, Type,
-                    is_string)
+from .types import (BOOLEAN, ArrayType, CharType, DecimalType,
+                    GeometryType, MapType, QDigestType, RowType,
+                    TDigestType, TimestampTZType, Type, is_string)
 
 NumRows = Union[int, torch.Tensor]
 
@@ -70,6 +73,8 @@ def torch_dtype(typ: Type) -> torch.dtype:
         return torch.int8
     if isinstance(typ, (ArrayType, MapType)):
         return torch.int64
+    if isinstance(typ, GeometryType):
+        return torch.float64        # a POINT column's x lane
     dt = typ.np_dtype
     if dt is None or np.dtype(dt) not in _TORCH_DTYPES:
         raise NotImplementedError(f"not yet ported: lanes of type {typ}")
@@ -559,6 +564,16 @@ def _decode(c: Column, data: np.ndarray, valid: np.ndarray,
             col.append(q if not s else _dec.Decimal(q).scaleb(
                 -s, _dec.Context(prec=80)))
         return col
+    if isinstance(t, GeometryType):
+        # a POINT column renders as WKT; a WKT-backed shape passes its
+        # dictionary text through (ops/geo.py)
+        if c.dictionary is not None:
+            vals = c.dictionary.values
+            return [str(vals[int(data[i])]) if valid[i] else None
+                    for i in range(n)]
+        from .ops.geo import point_text
+        return [point_text(data[i], hi[i]) if valid[i] else None
+                for i in range(n)]
     if t.name == "boolean":
         return [bool(data[i]) if valid[i] else None for i in range(n)]
     if t.name in ("real", "double"):

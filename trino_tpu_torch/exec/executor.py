@@ -52,7 +52,8 @@ from ..columnar import (Batch, Column, StringDictionary, batch_from_pylist,
                         pad_batch, take_clamped)
 from ..config import (CONFIG, MemoryLimitExceeded, capacity_for,
                       reserve_bytes)
-from ..ops import compact, int128 as i128, join as join_ops, sort as sort_ops
+from ..ops import compact, geo, int128 as i128, join as join_ops, \
+    sort as sort_ops
 from ..ops.groupby import (COMBINABLE_KINDS, AggInput, _changes, _key_lanes,
                            global_aggregate, group_aggregate)
 from ..ops.hashing import GOLDEN, hash_column, mix64, shr, to_signed_order
@@ -67,8 +68,8 @@ from ..plan.nodes import (Aggregate, AggregationNode, AssignUniqueIdNode,
 from ..planner.logical import SemiJoinMultiNode
 from ..rex import Call, InputRef, and_all
 from ..session import Session
-from ..types import (BIGINT, BOOLEAN, DOUBLE, DecimalType, QDigestType, REAL,
-                     TDigestType, is_string)
+from ..types import (BIGINT, BOOLEAN, DOUBLE, DecimalType, GeometryType,
+                     QDigestType, REAL, TDigestType)
 from .complex import concat_rows, packed_rows, top_k_map_entries
 from .expr import EvalError, eval_expr, eval_predicate
 from .scancache import (cache_memory_bytes, col_bytes, evict_cache_pressure,
@@ -1314,10 +1315,14 @@ def device_concat(parts: Sequence[Batch]) -> Batch:
             out = concat_rows(cs, counts, cap)
             cols[name] = _pin_column(out) if pin else out
             continue
+        if isinstance(first.type, GeometryType) and \
+                len({c.dictionary is None for c in cs}) > 1:
+            # POINT parts among WKT-backed ones: all in the WKT form
+            cs = [geo.as_wkt(c) for c in cs]
+            first = cs[0]
         datas = [c.data[:n] for c, n in zip(cs, counts)]
         dic: Optional[StringDictionary] = first.dictionary
-        if is_string(first.type) and any(c.dictionary is not dic
-                                         for c in cs):
+        if dic is not None and any(c.dictionary is not dic for c in cs):
             remapped = []
             for c, d in zip(cs, datas):
                 dic, _, ro = dic.merge(c.dictionary)

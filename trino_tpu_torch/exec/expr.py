@@ -16,9 +16,10 @@ TIMESTAMP, TIME and TIMESTAMP WITH TIME ZONE functions, exec/scalars.py
 the rest of the scalar functions (bitwise, digests, URL, text, math,
 VARBINARY codecs, JSON) and exec/complex.py the functions of ARRAY, MAP
 and ROW values, the lambdas and the quantile digests' accessors; the
-casts between ARRAY, MAP and ROW types are here. Anything else (the
-functions of geometries) raises ``NotYetPorted("not yet ported: ...")``,
-an EvalError that try() lets through.
+casts between ARRAY, MAP and ROW types are here, as is the dispatch of
+the functions of geometries (ops/geo.py). Anything else raises
+``NotYetPorted("not yet ported: ...")``, an EvalError that try() lets
+through.
 
 A function of a DECIMAL argument that computes in doubles reads the
 decimal's value (``_f64``), not its unscaled lane.
@@ -61,12 +62,13 @@ from ..ops import hll
 from ..ops import int128 as i128
 from ..ops.datetime import add_months, extract_field
 from ..rex import Call, CaseExpr, Cast, Const, InputRef, Lambda, RowExpr
-from ..types import (BIGINT, BOOLEAN, DATE, DOUBLE, INTEGER, UNKNOWN,
-                     VARCHAR, ArrayType, CharType, DecimalType,
+from ..types import (BIGINT, BOOLEAN, DATE, DOUBLE, GEOMETRY, INTEGER,
+                     UNKNOWN, VARCHAR, ArrayType, CharType, DecimalType,
                      HyperLogLogType, MapType, RowType,
                      IntervalYearMonth, TimestampType, TimestampTZType,
                      TimeType, Type, iso_time_millis, iso_timestamp_millis,
-                     iso_timestamp_tz, is_integral, is_string)
+                     iso_timestamp_tz, is_integral, is_numeric,
+                     is_string)
 
 _F64 = torch.float64
 _I64 = torch.int64
@@ -1237,6 +1239,38 @@ def _power(e, batch):
     return Column(DOUBLE, torch.pow(_f64(a), _f64(b)), _merge_valid(a, b))
 
 
+def _geo_call(which):
+    """Geospatial dispatch into ops/geo.py (point lanes on the device).
+    Numeric arguments (coordinates) coerce to DOUBLE — a DECIMAL
+    literal's scaled-integer lane must not leak into geometry math."""
+    def h(e, batch):
+        from ..ops import geo
+        args = [eval_expr(a, batch) for a in e.args]
+        args = [cast_column(a, DOUBLE)
+                if a.type is not GEOMETRY and is_numeric(a.type)
+                and a.type is not DOUBLE else a
+                for a in args]
+        try:
+            if which == "point":
+                return geo.point_column(*args)
+            if which == "x":
+                return geo.st_x(args[0])
+            if which == "y":
+                return geo.st_y(args[0])
+            if which == "distance":
+                return geo.st_distance(*args)
+            if which == "fromtext":
+                return geo.geometry_from_text(args[0])
+            if which == "astext":
+                return geo.as_text(args[0])
+            if which == "contains":
+                return geo.st_contains(*args)
+            return geo.great_circle_distance(*args)
+        except ValueError as ex:
+            raise EvalError(str(ex)) from ex
+    return h
+
+
 def _float_pred(fn):
     def h(e, batch):
         a = eval_expr(e.args[0], batch)
@@ -1509,6 +1543,12 @@ _DISPATCH: Dict[str, Callable] = {
     "is_nan": _float_pred(torch.isnan),
     "is_finite": _float_pred(torch.isfinite),
     "is_infinite": _float_pred(torch.isinf),
+    "st_point": _geo_call("point"), "st_x": _geo_call("x"),
+    "st_y": _geo_call("y"), "st_distance": _geo_call("distance"),
+    "st_geometryfromtext": _geo_call("fromtext"),
+    "st_astext": _geo_call("astext"),
+    "st_contains": _geo_call("contains"),
+    "great_circle_distance": _geo_call("gcd"),
     "coalesce": _coalesce, "nullif": _nullif, "if": _if, "try": _try,
     "like": _like, "regexp_like": _regexp_like,
     "regexp_extract": _regexp_extract, "regexp_replace": _regexp_replace,

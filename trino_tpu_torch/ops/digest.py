@@ -16,12 +16,8 @@ device and the result goes back to it.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
 from concurrent.futures import ThreadPoolExecutor
-from pathlib import Path
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -39,38 +35,16 @@ def host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / \
-    "digest_compress.c"
-CFLAGS = ["-O2", "-ffp-contract=off", "-shared", "-fPIC"]
 _lib = None
 
 
 def _native():
-    """The C merge loop (csrc/digest_compress.c), compiled once per
-    source content into the package's _build directory with the host's C
-    compiler."""
+    """The C merge loop (csrc/digest_compress.c), built once per source
+    content by ops/native.py."""
     global _lib
     if _lib is None:
-        from .cuda_groupby import BUILD_DIR
-        cc = shutil.which("cc") or shutil.which("gcc")
-        if cc is None:
-            raise RuntimeError("no C compiler (cc or gcc) found: the "
-                               f"digests' merge loop, {SOURCE}, cannot be "
-                               "built")
-        src = SOURCE.read_bytes()
-        tag = hashlib.sha256(src + " ".join(CFLAGS).encode()).hexdigest()
-        so = BUILD_DIR / f"libdigest_compress-{tag[:16]}.so"
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run([cc, *CFLAGS, "-o", str(tmp), str(SOURCE)],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"{cc} failed for {SOURCE}:\n"
-                                   f"{proc.stdout}{proc.stderr}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
-        fn = lib.digest_compress
+        from .native import load_c
+        fn = load_c("digest_compress").digest_compress
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                        ctypes.c_int64]
         fn.restype = ctypes.c_int64

@@ -873,8 +873,14 @@ class LogicalPlanner:
             fields = [Field(f.name, f.symbol, f.type, table)
                       for f in rp.scope.fields]
             return RelationPlan(rp.root, Scope(fields, outer))
-        if self.catalogs.access_control is not None:
-            raise PlanningError("not yet ported: access control")
+        ac = self.catalogs.access_control
+        if ac is not None:
+            from ..security import AccessDeniedError
+            try:
+                ac.check_can_select(self.session.user, catalog, schema,
+                                    table)
+            except AccessDeniedError as e:
+                raise PlanningError(str(e)) from e
         handle, meta = self.catalogs.resolve_table(catalog, schema, table)
         assignments, schema_map, fields = {}, {}, []
         for cm in meta.columns:

@@ -47,8 +47,8 @@ def _pass_checker(session):
         return None
     if not enabled:
         return None
-    from .logical import PlanningError
-    raise PlanningError("not yet ported: plan_validation")
+    from ..analysis.sanity import PlanSanityChecker
+    return PlanSanityChecker()
 
 
 def optimize(plan: PlanNode, catalogs=None, session=None) -> PlanNode:

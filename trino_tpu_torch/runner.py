@@ -2,15 +2,17 @@
 and the statements around queries.
 
 Counterpart of ``trino_tpu/runner.py`` over the PyTorch executor, with the
-tpch, tpcds, memory, blackhole and system catalogs. The runner runs on
-``"cuda"`` unless its caller passes ``device="cpu"``; without a card it
-raises (config.resolve_device).
+tpch, tpcds, memory, blackhole and system catalogs, or the catalogs the
+caller gives it (localfile and jdbc ones among them, ``plugin.py``). The
+runner runs on ``"cuda"`` unless its caller passes ``device="cpu"``;
+without a card it raises (config.resolve_device).
 
 Statements: SELECT, EXPLAIN, SHOW (CATALOGS, SCHEMAS, TABLES [LIKE],
 COLUMNS, SESSION, FUNCTIONS, CREATE, STATS, GRANTS), DESCRIBE [INPUT |
 OUTPUT], USE, SET/RESET SESSION, CREATE/DROP TABLE [AS], CREATE [OR
 REPLACE]/DROP VIEW, INSERT, DELETE, UPDATE, MERGE, PREPARE, EXECUTE,
-DEALLOCATE, CALL, START TRANSACTION/COMMIT/ROLLBACK and GRANT/REVOKE/DENY.
+DEALLOCATE, CALL, START TRANSACTION/COMMIT/ROLLBACK and GRANT/REVOKE/DENY,
+each checked against the catalogs' access control (security.py).
 EXPLAIN ANALYZE raises ``not yet ported``.
 
 Writes keep the data on the device: CREATE TABLE AS, INSERT, DELETE,
@@ -95,15 +97,19 @@ class LocalQueryRunner:
     """Runs SQL in this process on one torch device."""
 
     def __init__(self, session: Optional[Session] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 catalogs: Optional[CatalogManager] = None):
         self.device = resolve_device(device)
-        self.catalogs = CatalogManager()
-        self.catalogs.register("tpch", TpchConnector(device=self.device))
-        self.catalogs.register("tpcds", TpcdsConnector(device=self.device))
-        self.catalogs.register("memory", MemoryConnector(device=self.device))
-        self.catalogs.register("blackhole",
-                               BlackholeConnector(device=self.device))
-        self.catalogs.register("system", SystemConnector(device=self.device))
+        if catalogs is not None:
+            self.catalogs = catalogs
+        else:
+            self.catalogs = CatalogManager()
+            dev = self.device
+            self.catalogs.register("tpch", TpchConnector(device=dev))
+            self.catalogs.register("tpcds", TpcdsConnector(device=dev))
+            self.catalogs.register("memory", MemoryConnector(device=dev))
+            self.catalogs.register("blackhole", BlackholeConnector(device=dev))
+            self.catalogs.register("system", SystemConnector(device=dev))
         self.session = session or Session(catalog="tpch", schema="tiny")
         # engine transaction state: each catalog's snapshot, taken at
         # START TRANSACTION and restored by ROLLBACK
@@ -126,16 +132,17 @@ class LocalQueryRunner:
         result.wall_s = time.perf_counter() - t0
         return result
 
-    def plan_sql(self, sql: str) -> OutputNode:
+    def plan_sql(self, sql: str, optimized: bool = True) -> OutputNode:
         stmt = parse_statement(sql)
         return self._plan(stmt.statement if isinstance(stmt, A.Explain)
-                          else stmt)
+                          else stmt, optimized)
 
-    def _plan(self, stmt) -> OutputNode:
+    def _plan(self, stmt, optimized: bool = True) -> OutputNode:
         if not isinstance(stmt, A.QueryStatement):
             raise QueryError("only queries can be planned")
         plan = LogicalPlanner(self.catalogs, self.session).plan(stmt)
-        return optimize(plan, self.catalogs, self.session)
+        return optimize(plan, self.catalogs, self.session) \
+            if optimized else plan
 
     # ------------------------------------------------------------------
     def _dispatch(self, stmt: A.Statement, sql: str = "") -> QueryResult:
@@ -677,8 +684,15 @@ class LocalQueryRunner:
 
     def _check_access(self, privilege: str, cat: str, schema: str,
                       table: str) -> None:
-        if self.catalogs.access_control is not None:
-            raise QueryError("not yet ported: access control")
+        ac = self.catalogs.access_control
+        if ac is None:
+            return
+        from .security import AccessDeniedError
+        try:
+            getattr(ac, f"check_can_{privilege}")(
+                self.session.user, cat, schema, table)
+        except AccessDeniedError as e:
+            raise QueryError(str(e)) from e
 
     def _qualify(self, parts: Tuple[str, ...]):
         parts = tuple(p.lower() for p in parts)
