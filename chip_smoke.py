@@ -52,7 +52,20 @@ rows equal tpch.sf1's. ``geo_sf10`` runs ST_Contains over three polygons
 (one with a hole, one with ten edges), great_circle_distance and
 ST_Distance over tpch.sf10 lineitem, grouped through grouped_sums, cold
 and warm, against a numpy ray cast of separate IEEE steps (the count
-exact) and fsum.
+exact) and fsum. ``server_sf10`` puts one port Coordinator() on the card
+over the sf10 phases' catalogs and drives it only over loopback HTTP
+(the port's StatementClient and DB-API): q1, q6, q3 and q12 from four
+clients at once against the rows those phases held to numpy, a 24k-row
+result paged through nextUri, a qmark parameter, EXPLAIN ANALYZE of q1,
+q9 past a 1 s query_max_run_time, and /metrics and
+system.runtime.queries.
+
+    python3 chip_smoke.py --server-only
+
+runs only the q1, q3, q6 and q12 phases, ``server_sf10`` at the
+coordinator's default 4 GiB scan cache (``server_sf10_default_cache``)
+and at the 16 GiB of the whole run, and the kernel phase over the
+shapes they gave.
 Every phase prints its wall (``wall``), and ``walls`` lists them.
 The kernel's lines (trino_tpu_torch/bench_grouped_sums.py) time each
 call four ways: ``ms`` back to back as a caller sees it, ``device_ms``
@@ -431,6 +444,7 @@ def phase_q3(runner, cuda_groupby, tpch_mod, device_mod, q3):
     check([tuple(x) for x in cold.join_sizes] == sizes,
           "q3 join sizes differ from the numpy reference")
     check(same, "q3 rows differ between runs")
+    return got
 
 
 def phase_q6(runner, cuda_groupby, tpch_mod, device_mod, q6):
@@ -2789,17 +2803,272 @@ T0 = time.perf_counter()
 WALLS: dict = {}
 
 
-def walled(name: str, fn, *args):
-    """``fn(*args)``, its wall time kept under ``name`` and printed."""
+SERVER_QUERIES = (1, 6, 3, 12)
+# the phase coordinator's scan cache (Coordinator(scan_cache_bytes=...),
+# scan-cache.max-size in etc/config.properties): the four queries'
+# lineitem and orders columns together (about 6 GB whole) outgrow the
+# default 4 GiB, and there the queries evict one another's columns and
+# regenerate them on every run
+SERVER_SCAN_CACHE_BYTES = 16 << 30
+SERVER_PAGING_SQL = ("SELECT l_orderkey, l_extendedprice FROM lineitem "
+                     "WHERE l_shipdate = DATE '1995-03-15'")
+
+
+def wire_rows(rows):
+    """Rows as the statement protocol carries them (dates as strings)."""
+    from trino_tpu_torch.fte.recovery import json_value
+    return [[json_value(v) for v in row] for row in rows]
+
+
+def protocol_pages(base_uri: str, sql: str):
+    """Each QueryResults page of one statement, through nextUri."""
+    import urllib.request
+    hdrs = {"X-Trino-User": "smoke", "X-Trino-Catalog": "tpch",
+            "X-Trino-Schema": SCHEMA}
+    req = urllib.request.Request(f"{base_uri}/v1/statement",
+                                 data=sql.encode(), headers=hdrs)
+    pages = []
+    while req is not None:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            pages.append(json.loads(r.read()))
+        nxt = pages[-1].get("nextUri")
+        req = urllib.request.Request(nxt, headers=hdrs) if nxt else None
+    return pages
+
+
+def join_query_threads(timeout: float) -> int:
+    """Wait for the coordinator's query threads (a killed query's thread
+    runs on to its next plan node or split); how many outlived
+    ``timeout``."""
+    import threading
+    deadline = time.monotonic() + timeout
+    for t in threading.enumerate():
+        if t.name.startswith("query-"):
+            t.join(max(deadline - time.monotonic(), 0.0))
+    return sum(1 for t in threading.enumerate()
+               if t.name.startswith("query-") and t.is_alive())
+
+
+def phase_server(runner, cuda_groupby, queries, want,
+                 scan_cache_bytes=SERVER_SCAN_CACHE_BYTES,
+                 phase="server_sf10"):
+    """One port Coordinator() on the card over the sf10 runner's catalogs
+    (warm scans) with a 16 GiB scan cache (``scan_cache_bytes``; None for
+    the coordinator's default), driven only over loopback
+    HTTP: four clients at once on q1, q6, q3 and q12 (rows equal to the
+    sf10 phases' numpy-checked rows), a 24k-row result paged through
+    nextUri, a DB-API query with a qmark parameter, EXPLAIN ANALYZE of
+    q1 (the node reading lineitem sees 60,007,494 rows), q9 past
+    query_max_run_time = 1 (EXCEEDED_TIME_LIMIT, then q6 still answers),
+    and /metrics and system.runtime.queries listing the phase's queries.
+    The grouped_sums launches are counted over the coordinator's queries
+    alone, and the first run of each query through it adds its launch
+    shapes to SHAPES. Then q1 and q6 straight through a runner, with and
+    without node stats, outside that count."""
+    import shutil
+    import tempfile
+    import threading
+    import urllib.request
+    from trino_tpu_torch.client import ClientError, StatementClient
+    from trino_tpu_torch.config import CONFIG
+    from trino_tpu_torch.dbapi import connect
+    from trino_tpu_torch.obs.metrics import parse_exposition
+    from trino_tpu_torch.runner import LocalQueryRunner
+    from trino_tpu_torch.server import Coordinator
+    from trino_tpu_torch.session import Session
+    # the runner's counts the paged query and EXPLAIN ANALYZE are held
+    # against, before the coordinator's launches are counted
+    count = runner.execute(SERVER_PAGING_SQL.replace(
+        "l_orderkey, l_extendedprice", "count(*)")).rows[0][0]
+    n_li = runner.execute("SELECT count(*) FROM lineitem").rows[0][0]
+    history = tempfile.mkdtemp(prefix="chip_smoke_history_")
+    torch.cuda.reset_peak_memory_stats()
+    co = Coordinator(catalogs=runner.catalogs, history_dir=history,
+                     scan_cache_bytes=scan_cache_bytes).start()
+    walls, fields = {}, {}
+    try:
+        check(co.device.type == "cuda", "the coordinator is not on cuda")
+
+        def client(**kw):
+            return StatementClient(co.base_uri, schema=SCHEMA, **kw)
+
+        def timed(name, sql, **kw):
+            t0 = time.perf_counter()
+            res = client(**kw).execute(sql)
+            walls[name] = time.perf_counter() - t0
+            return res
+        cuda_groupby.LAUNCHES = 0
+        # the first run of each query through the coordinator brings its
+        # columns into the cache; its launches by shape join SHAPES
+        _COLD["now"] = shapes = {}
+        t0 = time.perf_counter()
+        try:
+            for q in SERVER_QUERIES:
+                client().execute(queries[q])
+        finally:
+            _COLD["now"] = None
+        walls["warm_up"] = time.perf_counter() - t0
+        check(sum(shapes.values()) == cuda_groupby.LAUNCHES,
+              f"{phase}: launches by shape do not add up to the count")
+        for key, n in shapes.items():
+            by_phase = SHAPES.setdefault(key, {})
+            by_phase[phase] = by_phase.get(phase, 0) + n
+        fields["cold_shapes"] = {f"{k[0]}x{k[1]}x{k[2]}": n
+                                 for k, n in sorted(shapes.items())}
+        solo_launches = {}
+        for q in SERVER_QUERIES:
+            before = cuda_groupby.LAUNCHES
+            res = timed(f"q{q}_solo", queries[q])
+            solo_launches[q] = cuda_groupby.LAUNCHES - before
+            check(rows_match(res.rows, wire_rows(want[q])),
+                  f"server q{q} rows differ from the q{q} phase's")
+        fields["solo_launches"] = solo_launches
+        check(solo_launches[1] > 0,
+              "q1 through the coordinator launched no grouped_sums")
+        got, errors = {}, []
+        barrier = threading.Barrier(len(SERVER_QUERIES))
+
+        def one(q):
+            try:
+                barrier.wait()
+                t0 = time.perf_counter()
+                got[q] = client().execute(queries[q]).rows
+                walls[f"q{q}_concurrent"] = time.perf_counter() - t0
+            except Exception as e:          # noqa: BLE001
+                errors.append(f"q{q}: {e}")
+        before = cuda_groupby.LAUNCHES
+        threads = [threading.Thread(target=one, args=(q,))
+                   for q in SERVER_QUERIES]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        walls["concurrent_all"] = time.perf_counter() - t0
+        fields["concurrent_launches"] = cuda_groupby.LAUNCHES - before
+        check(not errors, f"concurrent server queries failed: {errors}")
+        for q in SERVER_QUERIES:
+            check(rows_match(got[q], wire_rows(want[q])),
+                  f"concurrent server q{q} rows differ from the q{q} "
+                  "phase's")
+        check(fields["concurrent_launches"] == sum(solo_launches.values()),
+              "concurrent launches differ from the solo runs' sum")
+        # paging through nextUri
+        t0 = time.perf_counter()
+        pages = protocol_pages(co.base_uri, SERVER_PAGING_SQL)
+        walls["paging"] = time.perf_counter() - t0
+        paged = [r for p in pages for r in p.get("data", [])]
+        fields["paging"] = {"rows": len(paged), "count": count,
+                            "pages": sum(1 for p in pages if "data" in p)}
+        check(pages[-1]["stats"]["state"] == "FINISHED"
+              and len(paged) == count > 4096
+              and fields["paging"]["pages"] == -(-count // 4096),
+              "the paged query's rows differ from the runner's count")
+        # one DB-API query with a qmark parameter
+        cur = connect(co.base_uri, schema=SCHEMA).cursor()
+        t0 = time.perf_counter()
+        cur.execute("SELECT count(*) FROM lineitem WHERE l_shipdate = "
+                    "DATE '1995-03-15' AND l_quantity <= ?", (50,))
+        walls["dbapi"] = time.perf_counter() - t0
+        check(cur.fetchall() == [[count]], "the DB-API count differs")
+        # EXPLAIN ANALYZE of q1
+        lines = [r[0] for r in timed("explain_analyze_q1",
+                                     "EXPLAIN ANALYZE " + queries[1]).rows]
+        stats = [ln for ln in lines if ", out " in ln]
+        fields["explain_analyze"] = stats
+        fields["lineitem_rows"] = n_li
+        check(any(f", in {n_li} rows" in ln
+                  and ln.startswith(("TableScan", "Aggregation"))
+                  for ln in stats),
+              f"no lineitem node of EXPLAIN ANALYZE q1 saw {n_li} rows")
+        check(any(ln.startswith("Output") and ", out 4 rows" in ln
+                  for ln in stats), "EXPLAIN ANALYZE q1 gave not 4 rows")
+        # q9 past its deadline, then q6 still answers
+        t0 = time.perf_counter()
+        try:
+            client(session_properties={"query_max_run_time": "1"}) \
+                .execute(queries[9])
+            deadline_error = None
+        except ClientError as e:
+            deadline_error = str(e)
+        walls["q9_deadline"] = time.perf_counter() - t0
+        fields["q9_error"] = deadline_error
+        check(deadline_error is not None
+              and deadline_error.startswith("EXCEEDED_TIME_LIMIT"),
+              f"q9 under query_max_run_time=1 gave {deadline_error}")
+        res = timed("q6_after_deadline", queries[6])
+        check(rows_match(res.rows, wire_rows(want[6])),
+              "q6 after the deadline differs from the q6 phase's")
+        # the killed q9's thread runs on to its next plan node, split or
+        # chunk; its terminal state is counted when it ends
+        t0 = time.perf_counter()
+        check(join_query_threads(120.0) == 0, "q9's thread did not end")
+        walls["q9_thread_tail"] = time.perf_counter() - t0
+        # /metrics and system.runtime.queries
+        with urllib.request.urlopen(co.base_uri + "/metrics") as r:
+            fams = parse_exposition(r.read().decode())
+        states = fams.get("trino_tpu_query_states_total", {})
+        fields["metrics_states"] = {k[0]: v for k, v in states.items()}
+        rt = client().execute("SELECT state, count(*) FROM "
+                              "system.runtime.queries GROUP BY state "
+                              "ORDER BY state").rows
+        fields["runtime_queries"] = rt
+        by_state = dict(map(tuple, rt))
+        check(states.get(("state=FINISHED",), 0) >= 12
+              and states.get(("state=FAILED",), 0) >= 1,
+              "/metrics does not count the phase's queries")
+        check(by_state.get("FINISHED", 0) >= 12
+              and by_state.get("FAILED", 0) >= 1,
+              "system.runtime.queries lacks the phase's queries")
+        launches = cuda_groupby.LAUNCHES
+        check(launches > 0, "grouped_sums did not launch in the phase")
+        fields["queued_s_max"] = max(
+            (q.started or q.ended or q.created) - q.created
+            for q in co.tracker.all())
+        # the same queries straight through a runner, with and without
+        # node stats (the coordinator's runners collect them: a device
+        # synchronisation ends each plan node); not counted above
+        stats_runner = LocalQueryRunner(
+            Session(catalog="tpch", schema=SCHEMA),
+            catalogs=runner.catalogs, collect_node_stats=True)
+        for q in (1, 6):
+            for name, r in (("runner", runner),
+                            ("runner_stats", stats_runner)):
+                t0 = time.perf_counter()
+                r.execute(queries[q])
+                torch.cuda.synchronize()
+                walls[f"q{q}_{name}"] = time.perf_counter() - t0
+    finally:
+        co.stop()
+        stragglers = join_query_threads(120.0)
+        shutil.rmtree(history, ignore_errors=True)
+    check(stragglers == 0, "a query thread outlived the phase")
+    peak = torch.cuda.max_memory_allocated()
+    emit(phase, schema=f"tpch.{SCHEMA}", walls_s=walls,
+         concurrent_vs_solo_sum=walls["concurrent_all"] / sum(
+             walls[f"q{q}_solo"] for q in SERVER_QUERIES),
+         max_memory_allocated=peak, grouped_sums_launches=launches,
+         scan_cache_budget=scan_cache_bytes or CONFIG.scan_cache_bytes,
+         **fields)
+
+
+def walled(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its wall time kept under ``name`` and
+    printed."""
     t0 = time.perf_counter()
     try:
-        return fn(*args)
+        return fn(*args, **kwargs)
     finally:
         WALLS[name] = time.perf_counter() - t0
         emit("wall", of=name, s=WALLS[name])
 
 
-def main() -> int:
+def main(argv) -> int:
+    if argv not in ([], ["--server-only"]):
+        print("usage: python3 chip_smoke.py [--server-only]",
+              file=sys.stderr)
+        return 2
+    server_only = bool(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -2828,47 +3097,58 @@ def main() -> int:
         walled("orders_gen", phase_orders_gen, tpch_mod, device_mod)
         runner = runner_mod.LocalQueryRunner(
             session_mod.Session(catalog="tpch", schema=SCHEMA))
-        walled("q3", phase_q3, runner, cuda_groupby, tpch_mod, device_mod,
-               TPCH_QUERIES[3])
+        q3_rows = walled("q3", phase_q3, runner, cuda_groupby, tpch_mod,
+                         device_mod, TPCH_QUERIES[3])
         q6_rows = walled("q6", phase_q6, runner, cuda_groupby, tpch_mod,
                          device_mod, TPCH_QUERIES[6])
-        walled("q12", phase_query, "q12", runner, cuda_groupby, tpch_mod,
-               device_mod, TPCH_QUERIES[12], q12_reference, 3)
-        walled("q14", phase_query, "q14", runner, cuda_groupby, tpch_mod,
-               device_mod, TPCH_QUERIES[14], q14_reference, 3)
-        walled("q9", phase_query, "q9", runner, cuda_groupby, tpch_mod,
-               device_mod, TPCH_QUERIES[9], q9_reference, 1, expr_mod)
-        q18 = walled("q18", phase_query, "q18", runner, cuda_groupby,
-                     tpch_mod, device_mod, TPCH_QUERIES[18], q18_reference,
-                     2)
-        check(q18.spill_bytes > 0, "q18 did not spill to host memory")
+        q12 = walled("q12", phase_query, "q12", runner, cuda_groupby,
+                     tpch_mod, device_mod, TPCH_QUERIES[12], q12_reference,
+                     3)
+        server_want = {1: rows, 6: q6_rows, 3: q3_rows, 12: q12.rows}
+        if server_only:
+            walled("server_sf10_default_cache", phase_server, runner,
+                   cuda_groupby, TPCH_QUERIES, server_want,
+                   scan_cache_bytes=None,
+                   phase="server_sf10_default_cache")
+        else:
+            walled("q14", phase_query, "q14", runner, cuda_groupby,
+                   tpch_mod, device_mod, TPCH_QUERIES[14], q14_reference, 3)
+            walled("q9", phase_query, "q9", runner, cuda_groupby, tpch_mod,
+                   device_mod, TPCH_QUERIES[9], q9_reference, 1, expr_mod)
+            q18 = walled("q18", phase_query, "q18", runner, cuda_groupby,
+                         tpch_mod, device_mod, TPCH_QUERIES[18],
+                         q18_reference, 2)
+            check(q18.spill_bytes > 0, "q18 did not spill to host memory")
+        walled("server_sf10", phase_server, runner, cuda_groupby,
+               TPCH_QUERIES, server_want)
         del runner
         free_device()
-        walled("big", phases_big, runner_mod, session_mod, cuda_groupby,
-               tpch_mod, device_mod, TPCH_QUERIES)
-        free_device()
-        walled("ds", phases_ds, runner_mod, session_mod, cuda_groupby,
-               int128_mod)
-        free_device()
-        walled("agg", phases_agg, runner_mod, session_mod, cuda_groupby,
-               tpch_mod, device_mod)
-        free_device()
-        walled("scalar_sf10", phase_scalar, runner_mod, session_mod,
-               cuda_groupby, tpch_mod, device_mod)
-        free_device()
-        walled("dml_sf10", phase_dml, runner_mod, session_mod, cuda_groupby,
-               tpch_mod, device_mod, TPCH_QUERIES[1], rows)
-        free_device()
-        walled("files_sf10", phase_files, runner_mod, session_mod,
-               cuda_groupby, TPCH_QUERIES[1], rows, TPCH_QUERIES[6],
-               q6_rows)
-        free_device()
-        walled("geo_sf10", phase_geo, runner_mod, session_mod, cuda_groupby,
-               tpch_mod, device_mod)
-        free_device()
-        walled("complex_sf10", phase_complex, runner_mod, session_mod,
-               cuda_groupby, tpch_mod, device_mod)
-        free_device()
+        if not server_only:
+            walled("big", phases_big, runner_mod, session_mod, cuda_groupby,
+                   tpch_mod, device_mod, TPCH_QUERIES)
+            free_device()
+            walled("ds", phases_ds, runner_mod, session_mod, cuda_groupby,
+                   int128_mod)
+            free_device()
+            walled("agg", phases_agg, runner_mod, session_mod, cuda_groupby,
+                   tpch_mod, device_mod)
+            free_device()
+            walled("scalar_sf10", phase_scalar, runner_mod, session_mod,
+                   cuda_groupby, tpch_mod, device_mod)
+            free_device()
+            walled("dml_sf10", phase_dml, runner_mod, session_mod,
+                   cuda_groupby, tpch_mod, device_mod, TPCH_QUERIES[1], rows)
+            free_device()
+            walled("files_sf10", phase_files, runner_mod, session_mod,
+                   cuda_groupby, TPCH_QUERIES[1], rows, TPCH_QUERIES[6],
+                   q6_rows)
+            free_device()
+            walled("geo_sf10", phase_geo, runner_mod, session_mod,
+                   cuda_groupby, tpch_mod, device_mod)
+            free_device()
+            walled("complex_sf10", phase_complex, runner_mod, session_mod,
+                   cuda_groupby, tpch_mod, device_mod)
+            free_device()
         kernels = walled("kernel", phase_kernel, cuda_groupby)
         emit("walls", seconds=WALLS, total_s=time.perf_counter() - T0)
     except PhaseFailed as e:
@@ -2883,4 +3163,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

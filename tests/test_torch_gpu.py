@@ -1104,3 +1104,118 @@ def test_plan_validation_on_card_q1(cuda):
     r.session.set("plan_validation", True)
     assert r.execute(TPCH_QUERIES[1]).rows == want
     assert PLAN_VALIDATIONS.value() > before
+
+
+# ---- the coordinator on the card (concurrent queries, first use) ----------
+
+SERVER_QUERIES = (1, 6, 3, 12)
+
+
+@pytest.mark.gpu
+def test_concurrent_coordinator_queries_equal_solo_runs(cuda, tmp_path):
+    """Four threads send q1, q6, q3 and q12 at tpch.tiny to one
+    Coordinator() at once: their rows equal solo runs, and
+    grouped_sums.LAUNCHES rises by the sum of the solo runs' launches
+    (each query runs on a thread of its own)."""
+    import threading
+    from trino_tpu_torch.client import StatementClient
+    from trino_tpu_torch.server import Coordinator
+    co = Coordinator(history_dir=str(tmp_path)).start()
+    try:
+        assert co.device.type == "cuda"
+
+        def run(q):
+            return StatementClient(co.base_uri).execute(
+                TPCH_QUERIES[q]).rows
+
+        for q in SERVER_QUERIES:                 # cold: build, cache
+            run(q)
+        solo, launches = {}, {}
+        for q in SERVER_QUERIES:
+            before = cg.LAUNCHES
+            solo[q] = run(q)
+            launches[q] = cg.LAUNCHES - before
+        assert launches[1] > 0
+        got, errors = {}, []
+        barrier = threading.Barrier(len(SERVER_QUERIES))
+
+        def worker(q):
+            try:
+                barrier.wait()
+                got[q] = run(q)
+            except Exception as e:               # noqa: BLE001
+                errors.append(e)
+        before = cg.LAUNCHES
+        threads = [threading.Thread(target=worker, args=(q,))
+                   for q in SERVER_QUERIES]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        assert not errors
+        assert got == solo
+        assert cg.LAUNCHES - before == sum(launches.values())
+    finally:
+        co.stop()
+
+
+@pytest.mark.gpu
+def test_launch_count_holds_under_threads(cuda):
+    """LAUNCHES moves under a lock: eight threads launching at once lose
+    no count."""
+    import threading
+    g = torch.arange(1 << 12, device=cuda, dtype=torch.int32) % 12
+    lanes = [torch.ones(1 << 12, device=cuda, dtype=torch.float64)]
+    cg.grouped_sums(g, lanes, 12)
+    before = cg.LAUNCHES
+
+    def worker():
+        for _ in range(200):
+            cg.grouped_sums(g, lanes, 12)
+    threads = [threading.Thread(target=worker) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    torch.cuda.synchronize()
+    assert cg.LAUNCHES - before == 8 * 200
+
+
+@pytest.mark.gpu
+def test_cold_first_use_from_four_threads_builds_once(cuda, tmp_path,
+                                                      monkeypatch):
+    """Four threads reaching the first launch together: one nvcc build
+    into a fresh directory, no temporary file left, every result right
+    (ROADMAP C2)."""
+    import threading
+    monkeypatch.setattr(cg, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(cg, "_launch", None)
+    monkeypatch.setattr(cg, "_scratch_rows", None)
+    cg.scratch_rows.cache_clear()
+    builds = cg.BUILDS
+    rng = np.random.default_rng(11)
+    gid = torch.from_numpy(rng.integers(0, 12, 1 << 15)
+                           .astype(np.int32)).to(cuda)
+    vals = [torch.from_numpy(rng.uniform(0, 100, 1 << 15)).to(cuda)]
+    want = cg.grouped_sums_plain(gid, vals, 12)
+    barrier = threading.Barrier(4)
+    got, errors = [], []
+
+    def worker():
+        try:
+            barrier.wait()
+            got.append(cg.grouped_sums(gid, vals, 12))
+        except Exception as e:                  # noqa: BLE001
+            errors.append(e)
+    threads = [threading.Thread(target=worker) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    cg.scratch_rows.cache_clear()
+    assert not errors
+    assert cg.BUILDS == builds + 1
+    assert cg.BUILD_INFO["compiled"]
+    assert [p.suffix for p in tmp_path.iterdir()] == [".so"]
+    for out in got:
+        torch.testing.assert_close(out, want, rtol=SUM_REL, atol=0)

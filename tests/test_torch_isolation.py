@@ -125,3 +125,59 @@ def test_chip_smoke_imports_no_jax_or_trino_tpu():
                          text=True, cwd=str(PKG.parent), timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_the_server_entry_point_loads_no_jax():
+    """``python -m trino_tpu_torch.server.main --device cpu`` answers a
+    statement through the port's client, and the server process imported
+    neither jax nor trino_tpu (``-X importtime`` logs every import the
+    process makes, lazy ones included)."""
+    import tempfile
+    from trino_tpu_torch.client import StatementClient
+    # the import log goes to a file: a pipe nobody reads while the
+    # banner is awaited would fill and stall the server
+    with tempfile.TemporaryFile("w+") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-X", "importtime", "-m",
+             "trino_tpu_torch.server.main", "--device", "cpu", "--port",
+             "0"], cwd=str(PKG.parent), stdout=subprocess.PIPE,
+            stderr=log, text=True)
+        try:
+            banner = proc.stdout.readline()
+            uri = re.search(r"listening on (http://\S+)", banner)
+            assert uri, banner
+            res = StatementClient(uri.group(1)).execute(
+                "SELECT r_name FROM region ORDER BY r_regionkey LIMIT 2")
+            assert res.rows == [["AFRICA"], ["AMERICA"]]
+        finally:
+            proc.terminate()
+            proc.communicate(timeout=60)
+        log.seek(0)
+        err = log.read()
+    imported = {line.rsplit("|", 1)[-1].strip()
+                for line in err.splitlines()
+                if line.startswith("import time:")}
+    assert "trino_tpu_torch.server.coordinator" in imported
+    bad = sorted(m for m in imported if m in ("jax", "jaxlib", "trino_tpu")
+                 or m.startswith(("jax.", "jaxlib.", "trino_tpu.")))
+    assert bad == []
+
+
+def test_the_coordinator_modules_are_covered():
+    """The coordinator slice's modules are the port's own copies, and the
+    checks above reach them."""
+    for m in ("trino_tpu_torch.server.coordinator",
+              "trino_tpu_torch.server.main", "trino_tpu_torch.server.memory",
+              "trino_tpu_torch.server.events",
+              "trino_tpu_torch.server.resourcegroups",
+              "trino_tpu_torch.server.failure",
+              "trino_tpu_torch.server.proxy", "trino_tpu_torch.client",
+              "trino_tpu_torch.cli", "trino_tpu_torch.dbapi",
+              "trino_tpu_torch.errors", "trino_tpu_torch.obs.trace",
+              "trino_tpu_torch.obs.history", "trino_tpu_torch.fte.spool",
+              "trino_tpu_torch.fte.recovery",
+              "trino_tpu_torch.fte.faultpoints",
+              "trino_tpu_torch.exec.progkey",
+              "trino_tpu_torch.exec.learnedstats",
+              "trino_tpu_torch.exec.resultcache"):
+        assert m in MODULES

@@ -460,9 +460,18 @@ def test_show_catalogs_lacks_only_stream():
 
 
 def test_explain_analyze_is_not_yet_ported():
-    port = LocalQueryRunner(device="cpu")
-    with pytest.raises(QueryError, match="not yet ported: EXPLAIN ANALYZE"):
-        port.execute("EXPLAIN ANALYZE SELECT count(*) FROM nation")
+    """EXPLAIN ANALYZE was outside the statement slice; it came with the
+    coordinator slice and now renders the plan that ran, a stats line
+    per node and the trace, with the JAX engine's plan and rows."""
+    from _torch_server import analyze_shape
+    sql = "EXPLAIN ANALYZE SELECT count(*) FROM nation"
+    got = LocalQueryRunner(device="cpu").execute(sql)
+    want = TpuRunner().execute(sql)
+    assert got.columns == want.columns == ["Query Plan"]
+    g = analyze_shape([r[0] for r in got.rows])
+    w = analyze_shape([r[0] for r in want.rows])
+    assert g == w
+    assert g[2] == ["plan", "optimize", "execute"]
 
 
 def test_access_control_is_not_yet_ported():

@@ -13,6 +13,8 @@ itself.
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
 from typing import Optional, Union
 
 import torch
@@ -30,6 +32,20 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def _env_int(name: str, default: int) -> int:
+    try:
+        return int(os.environ.get(name, default))
+    except ValueError:
+        return default
+
+
+def _env_float(name: str, default: float) -> float:
+    try:
+        return float(os.environ.get(name, default))
+    except ValueError:
+        return default
 
 
 @dataclasses.dataclass
@@ -56,6 +72,50 @@ class EngineConfig:
     ragged_batch_rows: int = 1 << 16
     stream_poll_interval_ms: int = 500
     stream_lateness_ms: int = 1000
+
+    # The coordinator's services (server/, fte/, obs/history.py,
+    # exec/learnedstats.py, exec/resultcache.py), under the JAX
+    # engine's names and environment variables.
+    # Cluster memory pool in bytes (server/memory.py); 0 disables pool
+    # governance (the per-node limit still applies).
+    cluster_memory_pool_bytes: int = _env_int(
+        "TRINO_TPU_CLUSTER_MEMORY_POOL", 0)
+    # The spool (fte/spool.py): its root directory (uid-scoped: query
+    # results transit it), the TTL after which an abandoned query's
+    # entries are reaped, and the backend ("local"; the object-store
+    # backend comes with the worker slice).
+    spool_dir: str = os.environ.get(
+        "TRINO_TPU_SPOOL_DIR",
+        os.path.join(tempfile.gettempdir(),
+                     f"trino_tpu_spool_{getattr(os, 'getuid', int)()}"))
+    spool_ttl_s: int = _env_int("TRINO_TPU_SPOOL_TTL", 3600)
+    spool_backend: str = os.environ.get("TRINO_TPU_SPOOL_BACKEND",
+                                        "local")
+    # Restart-recovery persistence cap (fte/recovery.py): past it a
+    # finished query is not re-pullable from a restarted coordinator.
+    # 0 = no cap.
+    result_spool_max_bytes: int = _env_int(
+        "TRINO_TPU_RESULT_SPOOL_MAX_BYTES", 64 << 20)
+    # Coordinator result cache (exec/resultcache.py) byte budget; 0
+    # disables it (the result_cache_enabled session property gates each
+    # query).
+    result_cache_bytes: int = _env_int(
+        "TRINO_TPU_RESULT_CACHE_BYTES", 64 << 20)
+    # Query history (obs/history.py) and learned statistics
+    # (exec/learnedstats.py): record capacity and TTL, the registry's
+    # entry cap and EMA alpha.
+    history_capacity: int = _env_int("TRINO_TPU_HISTORY_CAPACITY",
+                                     1024)
+    history_ttl_s: int = _env_int("TRINO_TPU_HISTORY_TTL", 7 * 86400)
+    learned_stats_entries: int = _env_int(
+        "TRINO_TPU_LEARNED_STATS_ENTRIES", 512)
+    learned_stats_alpha: float = _env_float(
+        "TRINO_TPU_LEARNED_STATS_ALPHA", 0.2)
+    # system.runtime.metrics ring (obs/history.py MetricsRing): slots
+    # and the least seconds between two samples.
+    metrics_ring_slots: int = _env_int("TRINO_TPU_METRICS_RING", 64)
+    metrics_ring_interval_s: float = _env_float(
+        "TRINO_TPU_METRICS_RING_INTERVAL_S", 15.0)
 
 
 CONFIG = EngineConfig()

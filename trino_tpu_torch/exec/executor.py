@@ -33,6 +33,13 @@ several splits aggregates split by split and combines the partials
 (``_try_streaming_aggregation``); on a card, a table that fits the scan
 cache (exec/scancache.py) is read whole from it instead.
 
+Query controls: the session's cancel event and deadline are checked
+before every plan node, split read, streamed chunk and spill chunk
+(EXCEEDED_TIME_LIMIT past the deadline). With ``collect_stats`` every
+node records a ``NodeStats`` (EXPLAIN ANALYZE, /v1/query), and each
+reservation also feeds the coordinator's cluster memory pool when the
+session carries one.
+
 Plan nodes, expressions and aggregates outside the ported slice raise
 ``QueryError("not yet ported: ...")``; nothing runs through another
 engine.
@@ -40,6 +47,8 @@ engine.
 
 from __future__ import annotations
 
+import time
+from dataclasses import dataclass
 from dataclasses import replace as dc_replace
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -85,12 +94,149 @@ _PPOS, _BPOS = "__probe_pos$", "__build_pos$"
 
 
 class QueryError(Exception):
-    """Engine/user-facing failure."""
+    """Engine/user-facing failure. ``error_name``, when set, pins the
+    Trino error name that errors.classify reports (memory kills and
+    deadline breaches reach the client under their own name)."""
 
     def __init__(self, message: str, error_name: Optional[str] = None):
         super().__init__(message)
         if error_name is not None:
             self.error_name = error_name
+
+
+@dataclass
+class NodeStats:
+    """One plan node's execution: wall time (children included), rows and
+    bytes in and out, thread-CPU time, and a detail note (the streamed
+    chunks). Counterpart of the JAX engine's NodeStats; its compile and
+    cache fields stay at their defaults here (the port compiles no
+    programs), and ``device_s`` is not measured (0)."""
+    name: str
+    detail: str = ""
+    wall_s: float = 0.0
+    output_rows: int = -1
+    input_rows: int = -1
+    input_bytes: int = -1
+    output_bytes: int = -1
+    compile_s: float = 0.0
+    cache_hit: Optional[bool] = None
+    device_s: float = 0.0
+    cpu_s: float = 0.0
+
+    def to_dict(self) -> dict:
+        return {"name": self.name, "detail": self.detail,
+                "wall_s": self.wall_s, "output_rows": self.output_rows,
+                "input_rows": self.input_rows,
+                "input_bytes": self.input_bytes,
+                "output_bytes": self.output_bytes,
+                "compile_s": self.compile_s,
+                "cache_hit": self.cache_hit,
+                "device_s": self.device_s,
+                "cpu_s": self.cpu_s}
+
+    @staticmethod
+    def from_dict(d: dict) -> "NodeStats":
+        return NodeStats(
+            d.get("name", "?"), d.get("detail", ""),
+            float(d.get("wall_s", 0.0)), int(d.get("output_rows", -1)),
+            int(d.get("input_rows", -1)), int(d.get("input_bytes", -1)),
+            int(d.get("output_bytes", -1)),
+            float(d.get("compile_s", 0.0)), d.get("cache_hit"),
+            float(d.get("device_s", 0.0)), float(d.get("cpu_s", 0.0)))
+
+
+def _sum_counts(vals: Sequence[int]) -> int:
+    known = [v for v in vals if v is not None and v >= 0]
+    return sum(known) if known else -1
+
+
+def merge_node_stats(
+        per_worker: Sequence[Sequence[NodeStats]]) -> List[NodeStats]:
+    """Roll several executions' node stats of one plan into one list.
+    The lists need not align position by position (a fused fast path
+    gives fewer entries), so entries merge by (node name, occurrence),
+    in the order of the longest list. Rows and bytes sum (the
+    executions split the input); wall and compile take the max (they
+    run at once); device and CPU seconds sum; cache_hit ANDs."""
+    lists = [list(l) for l in per_worker if l]
+    if not lists:
+        return []
+
+    def keyed(l: Sequence[NodeStats]):
+        seen: Dict[str, int] = {}
+        out = []
+        for st in l:
+            i = seen.get(st.name, 0)
+            seen[st.name] = i + 1
+            out.append(((st.name, i), st))
+        return out
+
+    base = max(lists, key=len)
+    by_key: Dict[tuple, List[NodeStats]] = {}
+    extras: List[tuple] = []
+    for l in sorted(lists, key=len, reverse=True):
+        for k, st in keyed(l):
+            if k not in by_key:
+                by_key[k] = []
+                if l is not base:
+                    extras.append(k)
+            by_key[k].append(st)
+    merged: List[NodeStats] = []
+    for k in [k for k, _ in keyed(base)] + extras:
+        same = by_key[k]
+        hits = [st.cache_hit for st in same if st.cache_hit is not None]
+        merged.append(NodeStats(
+            same[0].name, same[0].detail,
+            max(st.wall_s for st in same),
+            _sum_counts([st.output_rows for st in same]),
+            _sum_counts([st.input_rows for st in same]),
+            _sum_counts([st.input_bytes for st in same]),
+            _sum_counts([st.output_bytes for st in same]),
+            max(st.compile_s for st in same),
+            all(hits) if hits else None,
+            sum(st.device_s for st in same),
+            sum(st.cpu_s for st in same)))
+    return merged
+
+
+def render_analyze_lines(plan_lines, stats, trace) -> List[str]:
+    """The EXPLAIN ANALYZE text: the plan tree, a line of stats per
+    executed node, and the span tree."""
+    lines = list(plan_lines or [])
+    lines.append("")
+    lines.extend(stats_lines(stats or []))
+    if trace is not None and trace.roots:
+        lines.append("")
+        lines.append("Trace:")
+        lines.extend(trace.lines())
+    return lines
+
+
+def stats_lines(stats: Sequence[NodeStats]) -> List[str]:
+    """EXPLAIN ANALYZE's rendering of a NodeStats list (the JAX engine's
+    format)."""
+    out = []
+    for st in stats:
+        parts = [f"{st.name}: {st.wall_s * 1000:.2f}ms"]
+        if st.input_rows >= 0:
+            parts.append(f"in {st.input_rows} rows"
+                         + (f"/{st.input_bytes}B"
+                            if st.input_bytes >= 0 else ""))
+        parts.append(f"out {st.output_rows} rows"
+                     + (f"/{st.output_bytes}B"
+                        if st.output_bytes >= 0 else ""))
+        if st.compile_s > 0:
+            parts.append(f"compile {st.compile_s * 1000:.2f}ms")
+        if st.device_s > 0:
+            parts.append(f"device {st.device_s * 1000:.2f}ms")
+        if st.cpu_s > 0:
+            parts.append(f"cpu {st.cpu_s * 1000:.2f}ms")
+        if st.cache_hit is not None:
+            parts.append("cache hit" if st.cache_hit else "cache miss")
+        if st.detail:
+            parts.append(st.detail)
+        out.append(", ".join(parts))
+    return out
 
 
 def _keys_inexact(cols: Dict[str, Column], keys: Sequence[str]) -> bool:
@@ -120,10 +266,17 @@ def join_verify_filter(left_cols, right_cols, pkeys, bkeys, filt):
 
 class Executor:
     def __init__(self, catalogs: CatalogManager, session: Session,
-                 device: torch.device):
+                 device: torch.device, collect_stats: bool = False):
         self.catalogs = catalogs
         self.session = session
         self.device = device
+        # per-node stats (EXPLAIN ANALYZE, /v1/query): a frame per open
+        # node gathers its input (children's output, split reads); on a
+        # card each node ends with a device synchronisation, so its wall
+        # covers its work
+        self.collect_stats = collect_stats
+        self.stats: List[NodeStats] = []
+        self._frames: List[dict] = []
         # (probe rows, build rows, output rows) of each join, in the
         # order the joins finish
         self.join_sizes: List[Tuple[int, int, int]] = []
@@ -145,6 +298,51 @@ class Executor:
 
     def execute(self, node: PlanNode) -> Batch:
         check_interrupt(self.session)
+        if not self.collect_stats:
+            return self._execute_inner(node)
+        # the streamed chunks and bytes of the node's children, which the
+        # node's own count leaves out
+        frame = {"rows": 0, "bytes": 0, "child_chunks": 0, "child_h2d": 0}
+        self._frames.append(frame)
+        chunks0, h2d0 = self.stream_chunks, self.stream_h2d_bytes
+        t0 = time.perf_counter()
+        cpu0 = time.thread_time()
+        try:
+            out = self._execute_inner(node)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        finally:
+            self._frames.pop()
+        wall = time.perf_counter() - t0
+        cpu_s = max(time.thread_time() - cpu0, 0.0)
+        n = out.num_rows_host()
+        obytes = sum(col_bytes(c) for c in out.columns.values())
+        chunks = self.stream_chunks - chunks0
+        h2d = self.stream_h2d_bytes - h2d0
+        own = chunks - frame["child_chunks"]
+        detail = (f"streamed {own} chunks, {h2d - frame['child_h2d']}B h2d"
+                  if own else "")
+        self.stats.append(NodeStats(
+            type(node).__name__.replace("Node", ""), detail, wall_s=wall,
+            output_rows=n, input_rows=frame["rows"],
+            input_bytes=frame["bytes"], output_bytes=obytes, cpu_s=cpu_s))
+        if self._frames:
+            parent = self._frames[-1]
+            parent["rows"] += n
+            parent["bytes"] += obytes
+            parent["child_chunks"] += chunks
+            parent["child_h2d"] += h2d
+        return out
+
+    def count_input(self, b: Batch) -> None:
+        """Charge a batch read from a connector (a split, a cached table)
+        to the current node's input."""
+        if self.collect_stats and self._frames:
+            self._frames[-1]["rows"] += b.num_rows_host()
+            self._frames[-1]["bytes"] += sum(
+                col_bytes(c) for c in b.columns.values())
+
+    def _execute_inner(self, node: PlanNode) -> Batch:
         try:
             out = None
             if isinstance(node, (FilterNode, ProjectNode)):
@@ -221,8 +419,20 @@ class Executor:
                      b.num_rows)
 
     def _read_split(self, conn, split, columns) -> Batch:
-        """A split read through the scan cache, on this device."""
-        return read_split_cached(conn, split, columns).to(self.device)
+        """A split read through the scan cache, on this device. A split is
+        also where a cancel or a passed deadline stops a scan."""
+        check_interrupt(self.session)
+        t0 = time.perf_counter()
+        b = read_split_cached(conn, split, columns).to(self.device)
+        self.count_input(b)
+        on_split = getattr(self.session, "on_split", None)
+        if on_split is not None:
+            # the coordinator's listeners see each split's read
+            h = split.handle
+            on_split(f"{h.catalog}.{h.schema}.{h.table}"
+                     f"[{split.part}/{split.part_count}]",
+                     time.perf_counter() - t0)
+        return b
 
     # ------------------------------------------------------------------
     # streaming aggregation over scan splits: aggregate split by split
@@ -269,6 +479,7 @@ class Executor:
                          raw.num_rows)
 
         if whole is not None:
+            self.count_input(whole)
             return run_full(renamed(whole.to(self.device)))
         splits = None
         if stream_cap is None:
@@ -332,7 +543,9 @@ class Executor:
         par = int(self.session.get("task_concurrency")) or 1
         whole = read_table_cached(conn, node.handle, columns, par,
                                   self.device)
-        if whole is None:
+        if whole is not None:
+            self.count_input(whole)
+        else:
             # check the memory guard before materialising the table; a
             # pushed-down constraint or limit shrinks the result by a
             # factor known only once the splits are read, so such a scan
@@ -614,15 +827,20 @@ class Executor:
         self._account(int(nbytes))
 
     def _account(self, est: int) -> None:
-        """Keep the query's peak reservation (its largest single one), and
-        let the scan cache yield to it: where the card cannot hold the
+        """Keep the query's peak reservation (its largest single one), let
+        the caches yield to it (where the card cannot hold the
         reservation, cached lanes are evicted, oldest first, for the
-        difference (the JAX worker's cache-pressure relief, with the card
-        as the worker's budget; the port has no cluster memory pool)."""
+        difference), and feed the coordinator's cluster memory pool
+        (server/memory.py) when the session carries one: a breach of the
+        query's cap, or a low-memory kill of this query, raises here a
+        QueryError with its Trino error name."""
         self.peak_reserved_bytes = max(self.peak_reserved_bytes, est)
         free = self._free_device_bytes()
         if free is not None and est > free:
             evict_cache_pressure(est - free)
+        mem = getattr(self.session, "memory", None)
+        if mem is not None:
+            mem.reserve(est)
 
     def _free_device_bytes(self) -> Optional[int]:
         """Bytes the card can still allocate (its free memory as CUDA
@@ -653,6 +871,7 @@ class Executor:
         chunks: List[Batch] = []
         lo = consumed = 0
         while lo < probe.capacity and consumed < total:
+            check_interrupt(self.session)
             hi = max(int(np.searchsorted(cum, consumed + budget, "right")),
                      lo + 1)
             chunk_rows = int(cum[hi - 1] - consumed)

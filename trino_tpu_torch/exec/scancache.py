@@ -18,8 +18,11 @@ insertion order. It is keyed weakly by the connector object: each
 gone its cached lanes go with it. ``torch.cuda.max_memory_allocated``
 counts the cached lanes.
 
-The result cache and the jit caches of the JAX engine have no
-counterpart here.
+Memory governance reads ``cache_memory_bytes`` (this cache and the
+coordinator's result cache, exec/resultcache.py) and sheds both through
+``evict_cache_pressure``; the port has no compiled-program caches to
+shed. The counters of ``STATS`` move under the cache's lock, so query
+threads of one coordinator count alike.
 """
 
 from __future__ import annotations
@@ -151,22 +154,35 @@ def read_split_cached(conn, split, columns) -> Batch:
 
 
 def cache_memory_bytes() -> int:
-    """Bytes the scan caches hold across every live connector."""
+    """Bytes the shared caches hold: the scan caches across every live
+    connector, and the result cache's host rows (process memory the
+    pressure ladder can shed, so governance must see it)."""
+    from .resultcache import RESULT_CACHE
     with _SCAN_CACHE_LOCK:
-        return sum(int(state["bytes"]) for state in _SCAN_CACHES.values())
+        scan = sum(int(state["bytes"]) for state in _SCAN_CACHES.values())
+    return scan + RESULT_CACHE.bytes()
 
 
 def evict_cache_pressure(need_bytes: int) -> int:
-    """Shed scan-cache entries, oldest first, until ``need_bytes`` are
-    freed or the caches are empty. Returns the bytes freed."""
+    """Shed cache entries, oldest first, until ``need_bytes`` are freed
+    or the caches are empty: the scan caches first, then the result
+    cache. Returns the bytes freed."""
+    from ..obs.metrics import CACHE_PRESSURE_EVICTS
+    from .resultcache import RESULT_CACHE
     need = max(int(need_bytes), 0)
     freed = 0
     with _SCAN_CACHE_LOCK:
         for state in list(_SCAN_CACHES.values()):
             while state["order"] and freed < need:
                 freed += _drop_oldest(state)
+                CACHE_PRESSURE_EVICTS.inc(cache="scan")
             if freed >= need:
                 break
+    if freed < need:
+        before = len(RESULT_CACHE)
+        freed += RESULT_CACHE.evict(need - freed)
+        for _ in range(before - len(RESULT_CACHE)):
+            CACHE_PRESSURE_EVICTS.inc(cache="result")
     return freed
 
 

@@ -16,7 +16,10 @@ tensor, a row per lane.
 Dispatch: a CPU tensor goes to ``grouped_sums_plain``; a CUDA tensor
 launches the kernel, once a call, or raises (on a build failure, a launch
 error, a wrong dtype, shape, stride or alignment). There is no fallback.
-``LAUNCHES`` counts kernel launches. The host's work a call does not grow
+``LAUNCHES`` counts kernel launches. Query threads of one coordinator
+may reach the first launch together: ``build`` runs under a lock (one
+compile, ``BUILDS`` counts the loads) into a temporary name of its own,
+and ``LAUNCHES`` moves under a lock too. The host's work a call does not grow
 with K: two tensors checked, one ``torch.empty``, one ctypes call. The
 source owns the call's layout (blocks, scratch, tickets):
 ``scratch_rows`` asks it for the size of that one allocation.
@@ -30,6 +33,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Sequence, Union
@@ -41,6 +45,10 @@ import torch
 MAX_GROUPS = 64
 
 LAUNCHES = 0
+# libraries loaded by ``build`` (1 after the first use, whatever the
+# number of threads that raced to it)
+BUILDS = 0
+_LOCK = threading.Lock()
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "grouped_sums.cu"
@@ -70,10 +78,16 @@ def _nvcc() -> str:
 
 def build():
     """Compile (once per source content) and load the kernel library;
-    returns its launch function, with its argument types set."""
-    global _launch, _scratch_rows
-    if _launch is not None:
+    returns its launch function, with its argument types set. Threads
+    that call it together wait for one build."""
+    with _LOCK:
+        if _launch is None:
+            _build_locked()
         return _launch
+
+
+def _build_locked() -> None:
+    global _launch, _scratch_rows, BUILDS
     src = SOURCE.read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     so = BUILD_DIR / f"libgrouped_sums-{tag[:16]}.so"
@@ -81,7 +95,7 @@ def build():
     log = ""
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        tmp = so.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         proc = subprocess.run(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
             capture_output=True, text=True)
@@ -101,8 +115,8 @@ def build():
     _scratch_rows = rows
     BUILD_INFO.update(seconds=time.perf_counter() - t0, library=str(so),
                       compiled=bool(log), ptxas=log)
+    BUILDS += 1
     _launch = fn
-    return fn
 
 
 @functools.lru_cache(maxsize=4096)
@@ -215,5 +229,6 @@ def grouped_sums(gid: torch.Tensor, lanes: Lanes,
     if rc != 0:
         raise RuntimeError(f"grouped_sums kernel launch failed: CUDA error "
                            f"{rc}")
-    LAUNCHES += 1
+    with _LOCK:
+        LAUNCHES += 1
     return buf if rows == k else buf[:k]

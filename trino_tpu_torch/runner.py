@@ -12,8 +12,16 @@ COLUMNS, SESSION, FUNCTIONS, CREATE, STATS, GRANTS), DESCRIBE [INPUT |
 OUTPUT], USE, SET/RESET SESSION, CREATE/DROP TABLE [AS], CREATE [OR
 REPLACE]/DROP VIEW, INSERT, DELETE, UPDATE, MERGE, PREPARE, EXECUTE,
 DEALLOCATE, CALL, START TRANSACTION/COMMIT/ROLLBACK and GRANT/REVOKE/DENY,
-each checked against the catalogs' access control (security.py).
-EXPLAIN ANALYZE raises ``not yet ported``.
+each checked against the catalogs' access control (security.py), and
+EXPLAIN ANALYZE.
+
+Query controls (the JAX runner's): the session's ``cancel`` event and
+its ``deadline`` (from ``query_max_run_time``, stamped by the
+coordinator or, standalone, by ``execute``) are checked before every
+plan node and every streamed chunk. With ``collect_node_stats`` every
+query records a ``NodeStats`` per plan node (a device synchronisation
+ends each node on a card) and a span tree (obs/trace.py); EXPLAIN
+ANALYZE always does, and renders the plan that ran with both.
 
 Writes keep the data on the device: CREATE TABLE AS, INSERT, DELETE,
 UPDATE and MERGE run their queries through the executor and hand its
@@ -40,9 +48,11 @@ from .connectors.memory import BlackholeConnector, MemoryConnector
 from .connectors.system import SystemConnector
 from .connectors.tpcds import TpcdsConnector
 from .connectors.tpch import TpchConnector
-from .exec.executor import Executor, QueryError, device_concat
+from .exec.executor import (Executor, QueryError, device_concat,
+                            render_analyze_lines)
 from .exec.expr import cast_column, like_to_regex
 from .functions import list_functions
+from .obs.trace import QueryTrace, null_span
 from .ops import compact
 from .plan.nodes import OutputNode, plan_tree_lines
 from .planner import LogicalPlanner, PlanningError
@@ -85,6 +95,18 @@ class QueryResult:
     stream_copy_ms: float = 0.0
     stream_wait_ms: float = 0.0
     stream_ops: Dict[str, int] = field(default_factory=dict)
+    # telemetry (/v1/query, EXPLAIN ANALYZE, the query history): the
+    # NodeStats list, the plan that ran, the span tree and the plan's
+    # canonical key (exec/learnedstats.py)
+    stats: Optional[list] = None
+    plan_lines: Optional[List[str]] = None
+    trace: Optional[object] = None
+    plan_key: str = ""
+
+    @property
+    def peak_memory_bytes(self) -> int:
+        """The JAX engine's name of ``peak_reserved_bytes``."""
+        return self.peak_reserved_bytes
 
     def __iter__(self):
         return iter(self.rows)
@@ -98,8 +120,10 @@ class LocalQueryRunner:
 
     def __init__(self, session: Optional[Session] = None,
                  device: DeviceLike = None,
-                 catalogs: Optional[CatalogManager] = None):
+                 catalogs: Optional[CatalogManager] = None,
+                 collect_node_stats: bool = False):
         self.device = resolve_device(device)
+        self.collect_node_stats = collect_node_stats
         if catalogs is not None:
             self.catalogs = catalogs
         else:
@@ -116,20 +140,49 @@ class LocalQueryRunner:
         self._txn_snapshot = None
 
     def execute(self, sql: str) -> QueryResult:
+        from .obs.metrics import QUERY_PEAK_MEMORY_BYTES, QUERY_WALL_SECONDS
         t0 = time.perf_counter()
+        session = self.session
+        trace = QueryTrace() if self.collect_node_stats else None
+        sp = trace.span if trace is not None else null_span
+        prev_trace = session.trace
+        session.trace = trace
+        # a coordinator stamps the deadline at submit; a runner used on
+        # its own derives it here, so query_max_run_time holds either way
+        owned_deadline = False
+        if session.deadline is None:
+            limit = int(session.get("query_max_run_time") or 0)
+            if limit > 0:
+                session.deadline = time.monotonic() + limit
+                owned_deadline = True
         try:
-            stmt = parse_statement(sql)
-        except ParseError as e:
-            raise QueryError(f"SYNTAX_ERROR: {e}") from e
-        qid = self.session.query_id or self.session.next_query_id()
-        try:
-            result = self._dispatch(stmt, sql)
-        except PlanningError as e:
-            raise QueryError(str(e)) from e
-        except KeyError as e:
-            raise QueryError(str(e).strip('"')) from e
+            try:
+                with sp("parse"):
+                    stmt = parse_statement(sql)
+            except ParseError as e:
+                raise QueryError(f"SYNTAX_ERROR: {e}") from e
+            # a coordinator-stamped id wins, and is consumed here
+            qid = session.query_id or session.next_query_id()
+            session.query_id = qid
+            if trace is not None:
+                trace.query_id = qid
+            try:
+                result = self._dispatch(stmt, sql)
+            except PlanningError as e:
+                raise QueryError(str(e)) from e
+            except KeyError as e:
+                raise QueryError(str(e).strip('"')) from e
+        finally:
+            session.trace = prev_trace
+            session.query_id = ""
+            if owned_deadline:
+                session.deadline = None
+            QUERY_WALL_SECONDS.observe(time.perf_counter() - t0)
         result.query_id = qid
         result.wall_s = time.perf_counter() - t0
+        if trace is not None:
+            result.trace = trace
+        QUERY_PEAK_MEMORY_BYTES.set(result.peak_reserved_bytes)
         return result
 
     def plan_sql(self, sql: str, optimized: bool = True) -> OutputNode:
@@ -138,11 +191,18 @@ class LocalQueryRunner:
                           else stmt, optimized)
 
     def _plan(self, stmt, optimized: bool = True) -> OutputNode:
+        """The logical plan of a query, optimized unless asked not to;
+        each step a span of the session's trace when it carries one."""
         if not isinstance(stmt, A.QueryStatement):
             raise QueryError("only queries can be planned")
-        plan = LogicalPlanner(self.catalogs, self.session).plan(stmt)
-        return optimize(plan, self.catalogs, self.session) \
-            if optimized else plan
+        trace = self.session.trace
+        sp = trace.span if trace is not None else null_span
+        with sp("plan"):
+            plan = LogicalPlanner(self.catalogs, self.session).plan(stmt)
+        if not optimized:
+            return plan
+        with sp("optimize"):
+            return optimize(plan, self.catalogs, self.session)
 
     # ------------------------------------------------------------------
     def _dispatch(self, stmt: A.Statement, sql: str = "") -> QueryResult:
@@ -152,7 +212,7 @@ class LocalQueryRunner:
             if not isinstance(stmt.statement, A.QueryStatement):
                 raise QueryError("EXPLAIN supports queries only")
             if stmt.analyze:
-                raise QueryError("not yet ported: EXPLAIN ANALYZE")
+                return self._explain_analyze(stmt.statement)
             return QueryResult(["Query Plan"], [VARCHAR],
                                [[line] for line in plan_tree_lines(
                                    self._plan(stmt.statement))])
@@ -162,16 +222,40 @@ class LocalQueryRunner:
                 f"statement {type(stmt).__name__} not supported")
         return handler(stmt, sql)
 
-    # ---- queries ---------------------------------------------------------
-    def _execute_plan(self, stmt: A.QueryStatement):
-        plan = self._plan(stmt)
-        ex = Executor(self.catalogs, self.session, self.device)
-        return plan, ex, ex.execute(plan)
+    def _explain_analyze(self, stmt: A.QueryStatement) -> QueryResult:
+        """Run the query with node stats and a trace (even on a runner
+        whose queries collect neither) and render the plan that ran."""
+        trace = self.session.trace
+        owned = trace is None
+        if owned:
+            trace = self.session.trace = QueryTrace(self.session.query_id)
+        try:
+            res = self._run_query(stmt, collect_stats=True)
+        finally:
+            if owned:
+                self.session.trace = None
+        lines = render_analyze_lines(res.plan_lines, res.stats, trace)
+        return QueryResult(["Query Plan"], [VARCHAR], [[l] for l in lines])
 
-    def _run_query(self, stmt: A.QueryStatement) -> QueryResult:
-        plan, ex, batch = self._execute_plan(stmt)
+    # ---- queries ---------------------------------------------------------
+    def _execute_plan(self, stmt: A.QueryStatement,
+                      collect_stats: bool = False):
+        plan = self._plan(stmt)
+        trace = self.session.trace
+        sp = trace.span if trace is not None else null_span
+        ex = Executor(self.catalogs, self.session, self.device,
+                      collect_stats)
+        with sp("execute"):
+            batch = ex.execute(plan)
+        return plan, ex, batch
+
+    def _run_query(self, stmt: A.QueryStatement,
+                   collect_stats: Optional[bool] = None) -> QueryResult:
+        if collect_stats is None:
+            collect_stats = self.collect_node_stats
+        plan, ex, batch = self._execute_plan(stmt, collect_stats)
         schema = batch.schema()
-        return QueryResult(list(plan.names),
+        result = QueryResult(list(plan.names),
                            [schema[s] for s in plan.symbols],
                            batch.to_pylist(), join_sizes=ex.join_sizes,
                            spill_bytes=ex.spilled_bytes,
@@ -181,7 +265,19 @@ class LocalQueryRunner:
                            stream_overlapped=ex.stream_overlapped,
                            stream_copy_ms=ex.stream_copy_ms,
                            stream_wait_ms=ex.stream_wait_ms,
-                           stream_ops=dict(ex.stream_ops))
+                           stream_ops=dict(ex.stream_ops),
+                           plan_lines=plan_tree_lines(plan))
+        if collect_stats:
+            result.stats = ex.stats
+            # learned operator statistics: this execution's rows in and
+            # out feed the EMAs under the plan's canonical key
+            from .exec.learnedstats import plan_key_for, record_node_stats
+            result.plan_key = plan_key_for(plan)
+            try:
+                record_node_stats(result.plan_key, ex.stats, self.session)
+            except Exception:   # noqa: BLE001 — telemetry is best-effort
+                pass
+        return result
 
     def _run_query_batch(self, query: A.Query
                          ) -> Tuple[List[str], List[Type], Batch]:

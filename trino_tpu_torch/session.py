@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import itertools
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 from .config import CONFIG
 
@@ -229,9 +229,10 @@ class Session:
     # installs one per query; the executor nests jit_trace /
     # device_execute children under the open execute span
     trace: Optional[object] = None
-    # event fan-out (server/events.py EventListenerManager): when set,
-    # the executor fires SplitCompletedEvents from the split-read path
-    events: Optional[object] = None
+    # split-completion hook: when set (the coordinator sets one that
+    # fans out SplitCompletedEvents), the executor calls it with the
+    # split's id and read seconds after each split read
+    on_split: Optional[Callable[[str, float], None]] = None
     # id of the query currently executing on this session (stamped by
     # the coordinator / runner; carried into events and spans)
     query_id: str = ""
