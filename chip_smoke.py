@@ -66,6 +66,26 @@ runs only the q1, q3, q6 and q12 phases, ``server_sf10`` at the
 coordinator's default 4 GiB scan cache (``server_sf10_default_cache``)
 and at the 16 GiB of the whole run, and the kernel phase over the
 shapes they gave.
+
+``cluster_sf10`` (after ``server_sf10``) drives the cluster on the one
+card over loopback HTTP: two TaskWorkerServer(device="cuda") in this
+process behind a port Coordinator(worker_uris=...) run q1, q6, q3 and
+q12 at tpch.sf10 through the stage DAG (rows equal to those phases',
+each client wall beside ``server_sf10``'s), q1 on the flat leaf path,
+and EXPLAIN ANALYZE of q1 (its aggregations on worker stages), with
+grouped_sums launched in the workers' tasks and their shapes in the
+kernel phase; then two worker processes (``python -m
+trino_tpu_torch.server.main --role worker``), each a CUDA context of its
+own, announce themselves to a second coordinator: q1, then q1 under
+retry_policy=TASK with one worker process killed (SIGKILL) after the
+coordinator's first task reached it, the rows the same and the retry
+counter moved. It prints the exchange's frames and bytes and each
+device's peak.
+
+    python3 chip_smoke.py --cluster-only
+
+runs only the q1, q3, q6 and q12 phases, ``cluster_sf10`` and the
+kernel phase.
 Every phase prints its wall (``wall``), and ``walls`` lists them.
 The kernel's lines (trino_tpu_torch/bench_grouped_sums.py) time each
 call four ways: ``ms`` back to back as a caller sees it, ``device_ms``
@@ -240,17 +260,17 @@ _COLD: dict = {"now": None, "last": {}}
 
 def record_kernel_shapes(cg) -> None:
     """Count grouped_sums launches by (rows, lanes, groups) through the
-    module attribute the engine calls, from the wrapper's own count, in
-    cold runs only."""
+    module attribute the engine calls, in cold runs only: one launch a
+    call on the card (the wrapper's own count, checked against these by
+    each phase, also moves under concurrent calls of other threads)."""
     inner = cg.grouped_sums
 
     def recording(gid, lanes, nseg):
-        before = cg.LAUNCHES
         out = inner(gid, lanes, nseg)
         now = _COLD["now"]
-        if now is not None and cg.LAUNCHES > before:
+        if now is not None and gid.is_cuda:
             key = (int(gid.shape[0]), len(lanes), int(nseg))
-            now[key] = now.get(key, 0) + cg.LAUNCHES - before
+            now[key] = now.get(key, 0) + 1
         return out
     cg.grouped_sums = recording
 
@@ -3050,6 +3070,257 @@ def phase_server(runner, cuda_groupby, queries, want,
          max_memory_allocated=peak, grouped_sums_launches=launches,
          scan_cache_budget=scan_cache_bytes or CONFIG.scan_cache_bytes,
          **fields)
+    return walls
+
+
+CLUSTER_QUERIES = (1, 6, 3, 12)
+CLUSTER_START_S = 120.0      # a worker process's banner and announcement
+CLUSTER_TASK_PROPS = {"retry_policy": "TASK", "retry_initial_delay_ms": "10",
+                      "remote_task_timeout": "120"}
+
+
+def counter_total(name: str, **labels) -> float:
+    """A counter family of this process's registry, summed over the
+    series whose labels include ``labels``."""
+    from trino_tpu_torch.obs.metrics import METRICS
+    want = {f"{k}={v}" for k, v in labels.items()}
+    fam = METRICS.counter(name)
+    return sum(v for key, v in fam.samples()
+               if want <= {f"{k}={v}" for k, v in zip(fam.labelnames,
+                                                       key)})
+
+
+def exchange_counters() -> dict:
+    """The exchange's frames and bytes: partition frames written and read
+    by stage tasks, pages sent and received on the flat path."""
+    return {
+        "partition_frames_written": counter_total(
+            "trino_tpu_exchange_partitions_total", direction="written"),
+        "partition_bytes_written": counter_total(
+            "trino_tpu_exchange_partition_bytes_total", direction="written"),
+        "partition_frames_read": counter_total(
+            "trino_tpu_exchange_partitions_total", direction="read"),
+        "partition_bytes_read": counter_total(
+            "trino_tpu_exchange_partition_bytes_total", direction="read"),
+        "pages_sent": counter_total("trino_tpu_exchange_pages_total",
+                                    direction="sent"),
+        "page_bytes_sent": counter_total("trino_tpu_exchange_bytes_total",
+                                         direction="sent"),
+    }
+
+
+def start_worker_process(coordinator_uri: str, log):
+    """``python -m trino_tpu_torch.server.main --role worker`` from this
+    checkout, announcing itself to ``coordinator_uri``: its own process
+    and CUDA context on the card, its scan cache at the default budget.
+    Returns the process; ``worker_uri`` reads its banner."""
+    import os
+    return subprocess.Popen(
+        [sys.executable, "-m", "trino_tpu_torch.server.main", "--role",
+         "worker", "--port", "0", "--coordinator-uri", coordinator_uri],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=log, text=True)
+
+
+def worker_uri(proc) -> str:
+    """A started worker process's base URI, from its banner."""
+    import re
+    banner = proc.stdout.readline()
+    found = re.search(r"listening on (http://\S+)", banner)
+    if not found:
+        raise PhaseFailed(f"a worker process did not start: {banner!r}")
+    return found.group(1)
+
+
+def phase_cluster(cuda_groupby, queries, want, server_walls=None,
+                  phase="cluster_sf10"):
+    """The cluster on one card, driven only over loopback HTTP with the
+    port's StatementClient. First two TaskWorkerServer(device="cuda") in
+    this process (sharing its split scheduler, one runner slot) and a
+    port Coordinator(worker_uris=...): q1, q6, q3 and
+    q12 at tpch.sf10 through the stage DAG, each client wall beside the
+    single-node server_sf10 wall, rows equal to the sf10 phases'; q1 on
+    the flat leaf path (multistage_execution=false) with the same rows;
+    EXPLAIN ANALYZE of q1 with its aggregations on worker stages. The
+    grouped_sums launches of the workers' tasks are counted (more than
+    0) and their shapes join SHAPES. Then two worker processes
+    (``--role worker``) that announce themselves to a second
+    coordinator: q1 with the same rows, then q1 under retry_policy=TASK
+    with one worker process killed (SIGKILL) once the coordinator's
+    first task POST to it was accepted: the rows are the same, off the
+    survivor, and the coordinator's task retry counter moves. The
+    exchange's frames and bytes and each device's peak are printed;
+    every process started here is stopped, failed or not."""
+    import os
+    import signal
+    import shutil
+    import tempfile
+    import urllib.request
+    from trino_tpu_torch.client import StatementClient
+    from trino_tpu_torch.server import Coordinator
+    from trino_tpu_torch.server import task_worker
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+    walls, fields = {}, {}
+    workers, procs, coordinators, logs = [], [], [], []
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        # the two workers share this interpreter, so they share its
+        # split scheduler: one runner slot, their tasks taking turns at
+        # split and chunk boundaries (two threads of torch calls
+        # contending for the interpreter lock run 2-3x slower than one)
+        from trino_tpu_torch.exec.taskexec import TaskExecutor
+        shared = TaskExecutor(1)
+        workers = [task_worker.TaskWorkerServer(
+            device="cuda", task_executor=shared).start()
+            for _ in range(2)]
+        co = Coordinator(worker_uris=[w.base_uri for w in workers],
+                         history_dir=os.path.join(tmp, "history1"))
+        coordinators.append(co)
+        co.start()
+        check(co.device.type == "cuda" and all(
+            w.device.type == "cuda" for w in workers),
+            "the cluster is not on cuda")
+
+        def client(base_uri, **kw):
+            return StatementClient(base_uri, schema=SCHEMA, **kw)
+
+        ex0 = exchange_counters()
+        cuda_groupby.LAUNCHES = 0
+        _COLD["now"] = shapes = {}
+        try:
+            for q in CLUSTER_QUERIES:
+                before = exchange_counters()
+                t0 = time.perf_counter()
+                res = client(co.base_uri).execute(queries[q])
+                walls[f"q{q}"] = time.perf_counter() - t0
+                after = exchange_counters()
+                emit(f"{phase}_query", query=f"q{q}", wall_s=walls[f"q{q}"],
+                     server_sf10_solo_s=(server_walls or {}).get(
+                         f"q{q}_solo"),
+                     exchange={k: after[k] - before[k] for k in after})
+                check(rows_match(res.rows, wire_rows(want[q])),
+                      f"{phase}: q{q} rows differ from the q{q} phase's")
+            launches = cuda_groupby.LAUNCHES
+            t0 = time.perf_counter()
+            res = client(co.base_uri, session_properties={
+                "multistage_execution": "false"}).execute(queries[1])
+            walls["q1_flat"] = time.perf_counter() - t0
+            check(rows_match(res.rows, wire_rows(want[1])),
+                  f"{phase}: q1 on the flat path differs")
+            fields["launches_flat_q1"] = cuda_groupby.LAUNCHES - launches
+        finally:
+            _COLD["now"] = None
+        launches = cuda_groupby.LAUNCHES
+        check(launches > 0, f"{phase}: the workers launched no grouped_sums")
+        check(sum(shapes.values()) == launches,
+              f"{phase}: launches by shape do not add up to the count")
+        for key, n in shapes.items():
+            by_phase = SHAPES.setdefault(key, {})
+            by_phase[phase] = by_phase.get(phase, 0) + n
+        fields["shapes"] = {f"{k[0]}x{k[1]}x{k[2]}": n
+                            for k, n in sorted(shapes.items())}
+        ex1 = exchange_counters()
+        fields["exchange"] = {k: ex1[k] - ex0[k] for k in ex1}
+        check(fields["exchange"]["partition_frames_written"] > 0,
+              f"{phase}: the stage DAG wrote no partition frames")
+        t0 = time.perf_counter()
+        lines = [r[0] for r in client(co.base_uri).execute(
+            "EXPLAIN ANALYZE " + queries[1]).rows]
+        walls["explain_analyze_q1"] = time.perf_counter() - t0
+        aggs = [ln for ln in lines if ln.startswith("Aggregation:")]
+        fields["explain_analyze_aggregations"] = aggs
+        check(aggs and all("stage " in ln and "coordinator" not in ln
+                           for ln in aggs),
+              f"{phase}: q1's aggregations did not run on worker stages")
+        fields["peak_in_process"] = torch.cuda.max_memory_allocated()
+        if server_walls:
+            fields["server_sf10_solo"] = {
+                f"q{q}": server_walls.get(f"q{q}_solo")
+                for q in CLUSTER_QUERIES}
+        co.stop()
+        for w in workers:
+            w.stop()
+        workers = []
+
+        # worker processes on the one card
+        co2 = Coordinator(history_dir=os.path.join(tmp, "history2"))
+        coordinators.append(co2)
+        co2.start()
+        t0 = time.perf_counter()
+        started = []
+        for i in range(2):
+            logs.append(open(os.path.join(tmp, f"worker{i}.log"), "w"))
+            started.append(start_worker_process(co2.base_uri, logs[-1]))
+            procs.append((started[-1], None))
+        procs = [(p, worker_uri(p)) for p in started]
+        deadline = time.monotonic() + CLUSTER_START_S
+        while len(co2.live_workers()) < 2 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        with urllib.request.urlopen(co2.base_uri + "/v1/announcement",
+                                    timeout=30) as r:
+            listed = [e["uri"] for e in json.loads(r.read())["workers"]
+                      if e["alive"]]
+        check(sorted(listed) == sorted(u for _, u in procs),
+              f"{phase}: /v1/announcement lists {listed}")
+        walls["processes_up"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = client(co2.base_uri).execute(queries[1])
+        walls["q1_processes"] = time.perf_counter() - t0
+        check(rows_match(res.rows, wire_rows(want[1])),
+              f"{phase}: q1 through the worker processes differs")
+        victim_proc, victim = procs[0]
+        submit = task_worker.RemoteTaskClient.submit_fragment
+        killed = {}
+
+        def submit_then_kill(self, *a, **kw):
+            out = submit(self, *a, **kw)
+            if self.base_uri == victim and not killed:
+                killed["at"] = time.perf_counter()
+                os.kill(victim_proc.pid, signal.SIGKILL)
+            return out
+        retries0 = counter_total("trino_tpu_task_retries_total")
+        task_worker.RemoteTaskClient.submit_fragment = submit_then_kill
+        t0 = time.perf_counter()
+        try:
+            res = client(co2.base_uri, session_properties=dict(
+                CLUSTER_TASK_PROPS)).execute(queries[1])
+        finally:
+            task_worker.RemoteTaskClient.submit_fragment = submit
+        walls["q1_killed_worker"] = time.perf_counter() - t0
+        fields["retries"] = counter_total(
+            "trino_tpu_task_retries_total") - retries0
+        check(bool(killed), f"{phase}: no task reached the victim")
+        check(victim_proc.wait(30) == -signal.SIGKILL,
+              f"{phase}: the victim did not die of SIGKILL")
+        check(rows_match(res.rows, wire_rows(want[1])),
+              f"{phase}: q1 with a killed worker differs")
+        check(fields["retries"] > 0,
+              f"{phase}: the coordinator's retry counter did not move")
+        peaks = {}
+        for _, uri in procs[1:]:
+            with urllib.request.urlopen(uri + "/v1/info", timeout=30) as r:
+                info = json.loads(r.read())
+            peaks[uri] = info.get("memoryPeakBytes")
+        fields["peak_worker_processes"] = peaks
+    finally:
+        for w in workers:
+            w.stop()
+        for c in coordinators:
+            with contextlib.suppress(Exception):
+                c.stop()
+        for p, _ in procs:
+            if p.poll() is None:
+                p.terminate()
+                try:
+                    p.wait(30)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait(30)
+        for log in logs:
+            log.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(phase, schema=f"tpch.{SCHEMA}", walls_s=walls,
+         grouped_sums_launches=launches, **fields)
 
 
 def walled(name: str, fn, *args, **kwargs):
@@ -3064,11 +3335,12 @@ def walled(name: str, fn, *args, **kwargs):
 
 
 def main(argv) -> int:
-    if argv not in ([], ["--server-only"]):
-        print("usage: python3 chip_smoke.py [--server-only]",
-              file=sys.stderr)
+    if argv not in ([], ["--server-only"], ["--cluster-only"]):
+        print("usage: python3 chip_smoke.py [--server-only | "
+              "--cluster-only]", file=sys.stderr)
         return 2
-    server_only = bool(argv)
+    server_only = argv == ["--server-only"]
+    cluster_only = argv == ["--cluster-only"]
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -3110,7 +3382,7 @@ def main(argv) -> int:
                    cuda_groupby, TPCH_QUERIES, server_want,
                    scan_cache_bytes=None,
                    phase="server_sf10_default_cache")
-        else:
+        elif not cluster_only:
             walled("q14", phase_query, "q14", runner, cuda_groupby,
                    tpch_mod, device_mod, TPCH_QUERIES[14], q14_reference, 3)
             walled("q9", phase_query, "q9", runner, cuda_groupby, tpch_mod,
@@ -3119,11 +3391,17 @@ def main(argv) -> int:
                          tpch_mod, device_mod, TPCH_QUERIES[18],
                          q18_reference, 2)
             check(q18.spill_bytes > 0, "q18 did not spill to host memory")
-        walled("server_sf10", phase_server, runner, cuda_groupby,
-               TPCH_QUERIES, server_want)
+        server_walls = None
+        if not cluster_only:
+            server_walls = walled("server_sf10", phase_server, runner,
+                                  cuda_groupby, TPCH_QUERIES, server_want)
         del runner
         free_device()
         if not server_only:
+            walled("cluster_sf10", phase_cluster, cuda_groupby,
+                   TPCH_QUERIES, server_want, server_walls)
+            free_device()
+        if not server_only and not cluster_only:
             walled("big", phases_big, runner_mod, session_mod, cuda_groupby,
                    tpch_mod, device_mod, TPCH_QUERIES)
             free_device()

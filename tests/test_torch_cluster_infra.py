@@ -3,9 +3,9 @@ resource groups, system.runtime, kill_query, authentication, access
 control, the failure detector, the web UI, cluster stats and the
 graceful drain.
 
-Counterparts of tests/test_cluster_infra.py, all but the leak-report and
-thread-leak cases (``server/diagnostics.py`` comes with the worker
-slice, ROADMAP 11b). A case that starts a coordinator starts the port's
+Counterparts of tests/test_cluster_infra.py, the leak-report and
+thread-leak cases (``server/diagnostics.py``) among them. A case that
+starts a coordinator starts the port's
 (``device="cpu"``) and, where the answer is data, the JAX one too, and
 holds the two answers equal.
 """
@@ -453,11 +453,97 @@ def test_graceful_drain(tmp_path):
 
 
 def test_leak_report_is_not_yet_ported(tmp_path):
+    """The leak report came with server/diagnostics.py: a coordinator
+    that ran nothing reports nothing, as the JAX one does."""
     co = Coordinator(device="cpu", history_dir=str(tmp_path))
+    jco = TpuCoordinator(history_dir=str(tmp_path / "j"))
     try:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            co.leak_report()
+        rep, jrep = co.leak_report(), jco.leak_report()
+        assert not rep.stuck_queries and not rep.orphaned_threads
+        assert rep.retained_results_bytes == 0
+        assert (rep.stuck_queries, rep.orphaned_threads,
+                rep.retained_results_bytes) == \
+            (jrep.stuck_queries, jrep.orphaned_threads,
+             jrep.retained_results_bytes)
     finally:
+        jco._httpd.server_close()
         co._httpd.server_close()
         from trino_tpu_torch.obs.metrics import METRICS
         METRICS.unregister_collector(co._metric_collector)
+
+
+# ---- leak report and thread-leak guard (server/diagnostics.py) ------------
+
+def test_leak_report_clean_and_detects(tmp_path):
+    """Stuck-query sweep, orphaned query threads, retained results: a
+    finished query reports clean, a slow query running past the
+    threshold is stuck, and after its cancel its still-scanning thread
+    is an orphan — the JAX coordinator's verdicts on the same steps."""
+    from trino_tpu.catalog import CatalogManager as TpuCatalogs
+    from trino_tpu.connectors.tpch import TpchConnector as TpuTpch
+    from trino_tpu.session import Session as TpuSession
+    from trino_tpu_torch.catalog import CatalogManager
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.session import Session
+
+    def slow(cls, **kw):
+        class Slow(cls):
+            def read_split(self, split, columns):
+                time.sleep(4)
+                return super().read_split(split, columns)
+        return Slow(**kw)
+
+    cats = CatalogManager()
+    cats.register("tpch", slow(TpchConnector, device="cpu"))
+    tcats = TpuCatalogs()
+    tcats.register("tpch", slow(TpuTpch))
+    verdicts = []
+    for co, sess in ((Coordinator(device="cpu", catalogs=cats,
+                                  history_dir=str(tmp_path / "t")),
+                      Session),
+                     (TpuCoordinator(catalogs=tcats,
+                                     history_dir=str(tmp_path / "j")),
+                      TpuSession)):
+        co.start()
+        try:
+            q = co.tracker.submit("SELECT 1", sess(catalog="tpch",
+                                                   schema="tiny"))
+            q.wait_done(60)
+            rep = co.leak_report()
+            clean = (not rep.stuck_queries, not rep.orphaned_threads,
+                     rep.retained_results_bytes >= 0)
+            q2 = co.tracker.submit("SELECT count(*) FROM nation",
+                                   sess(catalog="tpch", schema="tiny"))
+            time.sleep(0.5)
+            stuck = bool(co.leak_report(stuck_after_s=0.1).stuck_queries)
+            q2.do_cancel()
+            rep = co.leak_report(orphan_grace_s=0.0)
+            orphan = any("query" in t for t in rep.orphaned_threads)
+            assert q2.wait_done(30)
+            verdicts.append((clean, stuck, orphan))
+        finally:
+            co.stop()
+    assert verdicts[0] == ((True, True, True), True, True)
+    assert verdicts[0] == verdicts[1]
+
+
+def test_thread_leak_guard():
+    import threading
+    from trino_tpu.server.diagnostics import \
+        ThreadLeakGuard as TpuThreadLeakGuard
+    from trino_tpu_torch.server.diagnostics import ThreadLeakGuard
+
+    for guard in (ThreadLeakGuard, TpuThreadLeakGuard):
+        with guard(grace_s=1.0) as g:
+            t = threading.Thread(target=lambda: time.sleep(0.1))
+            t.start()
+            t.join()
+        assert g.leaked == []
+
+        ev = threading.Event()
+        with guard(grace_s=0.3) as g:
+            t = threading.Thread(target=ev.wait, name="leaky")
+            t.start()
+        assert any("leaky" in n for n in g.leaked)
+        ev.set()
+        t.join()

@@ -2,11 +2,10 @@
 authentication, against the JAX package's.
 
 Counterparts of tests/test_dbapi.py (all of it) and of
-tests/test_services.py's properties, ``etc/`` catalogs, proxy, grant and
-JWT cases (its verifier cases wait for the port's ``verifier.py``,
-ROADMAP 11b). Each case runs the same calls against the JAX coordinator
-and the port's (``device="cpu"``) and holds the port's answers to the
-reference's.
+tests/test_services.py's properties, ``etc/`` catalogs, proxy, grant,
+JWT and verifier cases. Each case runs the same calls against the JAX
+coordinator and the port's (``device="cpu"``) and holds the port's
+answers to the reference's.
 """
 
 import decimal
@@ -226,8 +225,10 @@ def test_coordinator_from_etc_settings(tmp_path):
     finally:
         co.stop()
     assert CONFIG.scan_cache_bytes == before
+    # a worker's config is not a coordinator's: it starts with
+    # --role worker
     (tmp_path / "config.properties").write_text("node.role=worker\n")
-    with pytest.raises(SystemExit, match="not yet ported"):
+    with pytest.raises(SystemExit, match="--role worker"):
         coordinator_from_etc(str(tmp_path), device="cpu")
 
 
@@ -370,3 +371,89 @@ def test_jwt_missing_exp_rejected_by_default():
     assert lax.authenticate_token(eternal) == "alice"
     expired = lax.sign({"sub": "alice", "exp": time.time() - 5})
     assert lax.authenticate_token(expired) is None
+
+
+# ---- the verifier (verifier.py) ----------------------------------------------
+
+def test_rows_match_tolerance_and_order():
+    from trino_tpu.verifier import rows_match as tpu_rows_match
+    from trino_tpu_torch.verifier import rows_match
+    cases = [([[1, 2.0]], [[1, 2.0 + 1e-12]], {}),
+             ([[1], [2]], [[2], [1]], {}),
+             ([[1], [2]], [[2], [1]], {"ordered": True}),
+             ([[1]], [[1], [2]], {}),
+             ([[None]], [[None]], {}),
+             ([[None]], [[1]], {})]
+    for a, b, kw in cases:
+        assert rows_match(a, b, **kw) == tpu_rows_match(a, b, **kw)
+    assert rows_match([[1, 2.0]], [[1, 2.0 + 1e-12]]) is None
+    assert rows_match([[1], [2]], [[2], [1]]) is None
+    assert rows_match([[1], [2]], [[2], [1]], ordered=True)
+    assert "row count" in rows_match([[1]], [[1], [2]])
+    assert rows_match([[None]], [[None]]) is None
+    assert rows_match([[None]], [[1]])
+
+
+@pytest.mark.slow
+def test_verifier_local_vs_distributed():
+    """The port's local runner against the port's stage DAG on two port
+    workers, and the JAX engine against the same distributed runner."""
+    from trino_tpu.runner import LocalQueryRunner as TpuRunner
+    from trino_tpu_torch.exec.remote import DistributedHostQueryRunner
+    from trino_tpu_torch.runner import LocalQueryRunner
+    from trino_tpu_torch.server.task_worker import TaskWorkerServer
+    from trino_tpu_torch.verifier import Verifier, report
+    workers = [TaskWorkerServer(device="cpu").start() for _ in range(2)]
+    try:
+        test = DistributedHostQueryRunner([w.base_uri for w in workers],
+                                          device="cpu")
+        suite = [
+            "SELECT count(*) FROM tpch.tiny.nation",
+            "SELECT n_regionkey, count(*) FROM tpch.tiny.nation "
+            "GROUP BY n_regionkey ORDER BY n_regionkey",
+            "SELECT sum(l_extendedprice * l_discount) FROM "
+            "tpch.tiny.lineitem WHERE l_quantity < 10",
+        ]
+        for control in (LocalQueryRunner(device="cpu"), TpuRunner()):
+            results = Verifier(control, test, rel_tol=1e-9).run_suite(
+                suite)
+            assert all(r.status == "MATCH" for r in results), \
+                report(results)
+    finally:
+        for w in workers:
+            w.stop()
+
+
+def test_verifier_detects_mismatch():
+    from trino_tpu.verifier import Verifier as TpuVerifier
+    from trino_tpu_torch.verifier import Verifier
+
+    class Fake:
+        def __init__(self, rows):
+            self._rows = rows
+
+        def execute(self, sql):
+            class R:
+                rows = self._rows
+            return R()
+    r = Verifier(Fake([[1]]), Fake([[2]])).verify("SELECT 1")
+    assert r.status == "MISMATCH" and "1" in r.detail
+    t = TpuVerifier(Fake([[1]]), Fake([[2]])).verify("SELECT 1")
+    assert (r.status, r.detail) == (t.status, t.detail)
+
+
+def test_verifier_error_classification():
+    from trino_tpu.runner import LocalQueryRunner as TpuRunner
+    from trino_tpu_torch.runner import LocalQueryRunner
+    from trino_tpu_torch.verifier import Verifier
+    good = LocalQueryRunner(device="cpu")
+
+    class Broken:
+        def execute(self, sql):
+            raise RuntimeError("down")
+    assert Verifier(good, Broken()).verify(
+        "SELECT 1").status == "TEST_ERROR"
+    assert Verifier(Broken(), good).verify(
+        "SELECT 1").status == "CONTROL_ERROR"
+    assert Verifier(good, TpuRunner()).verify(
+        "SELECT 1").status == "MATCH"

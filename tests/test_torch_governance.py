@@ -2,9 +2,8 @@
 through resource groups, the cluster memory pool and its low-memory
 killer, deadlines, the error identities and the governance metrics.
 
-Counterparts of tests/test_governance.py, all but
-``test_deadline_cancels_inflight_worker_attempts`` (it needs the task
-worker, ROADMAP 11b). Tracker-level cases drive the port's QueryTracker
+Counterparts of tests/test_governance.py, the deadline case through a
+port worker among them. Tracker-level cases drive the port's QueryTracker
 with a gated fake runner, as the reference does; the real-executor and
 HTTP cases run the port on the CPU and compare the outcome with the JAX
 engine's.
@@ -411,3 +410,55 @@ def test_governance_metrics_visible_in_exposition(tmp_path):
                    for i in co.resource_group_infos())
     finally:
         co.stop()
+
+
+def test_deadline_cancels_inflight_worker_attempts():
+    """A stage-path distributed query blocks in a port worker's scan;
+    the 1 s query_max_run_time breach fails it with EXCEEDED_TIME_LIMIT,
+    as the JAX engine names it, and aborts the attempt on the worker
+    (its task registry drains, its abort counter moves)."""
+    from trino_tpu.errors import error_info as tpu_error_info
+    from trino_tpu_torch.catalog import CatalogManager
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.exec.remote import DistributedHostQueryRunner
+    from trino_tpu_torch.server.task_worker import TaskWorkerServer
+
+    gate = threading.Event()
+
+    class BlockingTpch(TpchConnector):
+        remote_scan_ok = True
+
+        def read_split(self, split, columns):
+            gate.wait(30)
+            return super().read_split(split, columns)
+
+    cats = CatalogManager()
+    cats.register("tpch", BlockingTpch(device="cpu"))
+    worker = TaskWorkerServer(catalogs=cats, device="cpu").start()
+    aborted = METRICS.counter("trino_tpu_worker_tasks_aborted_total")
+    deadline_cancels = METRICS.counter("trino_tpu_deadline_cancels_total")
+    a0, d0 = aborted.value(), deadline_cancels.value()
+    tracker = QueryTracker(
+        lambda s: DistributedHostQueryRunner(
+            [worker.base_uri], session=s, catalogs=cats, device="cpu"))
+    try:
+        session = Session(catalog="tpch", schema="tiny")
+        session.set("query_max_run_time", 1)
+        session.set("multistage_execution", True)
+        q = tracker.submit("SELECT count(*) FROM lineitem", session)
+        _wait_until(lambda: len(worker._tasks) > 0,
+                    what="worker attempt in flight")
+        assert q.wait_done(15), "query did not reach a terminal state"
+        assert q.state == "FAILED"
+        assert q.error["errorName"] == "EXCEEDED_TIME_LIMIT"
+        assert q.error["errorCode"] == tpu_error_info(
+            "EXCEEDED_TIME_LIMIT")[0]
+        assert "maximum run time" in q.error["message"]
+        assert deadline_cancels.value() == d0 + 1
+        _wait_until(lambda: aborted.value() > a0,
+                    what="worker-side abort")
+        _wait_until(lambda: len(worker._tasks) == 0,
+                    what="worker task registry drained")
+    finally:
+        gate.set()
+        worker.stop()

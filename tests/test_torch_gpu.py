@@ -1219,3 +1219,101 @@ def test_cold_first_use_from_four_threads_builds_once(cuda, tmp_path,
     assert [p.suffix for p in tmp_path.iterdir()] == [".so"]
     for out in got:
         torch.testing.assert_close(out, want, rtol=SUM_REL, atol=0)
+
+
+# ---- the worker slice: builds across processes, workers, frames ------------
+
+_BUILD_RACE = """
+import pathlib, sys, time
+import torch
+from trino_tpu_torch import serde
+from trino_tpu_torch.columnar import batch_from_pylist
+from trino_tpu_torch.ops import cuda_groupby as cg, native
+from trino_tpu_torch.types import BIGINT
+d = pathlib.Path(sys.argv[1])
+cg.BUILD_DIR = d
+native.BUILD_DIR = d
+go = float(sys.argv[2])
+while time.time() < go:
+    time.sleep(0.001)
+g = torch.arange(1 << 12, device="cuda", dtype=torch.int32) % 12
+lanes = [torch.ones(1 << 12, device="cuda", dtype=torch.float64)]
+out = cg.grouped_sums(g, lanes, 12)
+want = cg.grouped_sums_plain(g.cpu(), [x.cpu() for x in lanes], 12)
+torch.testing.assert_close(out.cpu(), want, rtol=0, atol=0)
+b = batch_from_pylist({"k": list(range(100))}, {"k": BIGINT},
+                      device="cuda")
+back = serde.deserialize_batch(serde.serialize_batch(b), "cuda")
+assert back.to_pylist() == b.to_pylist()
+print(cg.LAUNCHES, cg.BUILDS)
+"""
+
+
+@pytest.mark.gpu
+def test_builds_race_across_processes(cuda, tmp_path):
+    """Two processes cold-build grouped_sums (nvcc) and the page codec
+    (c++) into one fresh build directory at the same moment: one library
+    of each, no temporary file left, and both processes launch the
+    kernel and frame a batch."""
+    import pathlib
+    import subprocess
+    import sys
+    import time
+    root = pathlib.Path(__file__).resolve().parent.parent
+    go = time.time() + 8.0        # both interpreters up and importing
+    procs = [subprocess.Popen([sys.executable, "-c", _BUILD_RACE,
+                               str(tmp_path), str(go)], cwd=str(root),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for _ in range(2)]
+    outs = [p.communicate(timeout=600) for p in procs]
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err
+        launches, builds = map(int, out.split())
+        assert launches >= 1 and builds == 1
+    names = sorted(p.name for p in tmp_path.iterdir())
+    assert [n.split("-")[0] for n in names] == ["libgrouped_sums",
+                                                "libpageserde"], names
+    assert all(n.endswith(".so") for n in names), names
+
+
+@pytest.mark.gpu
+def test_two_workers_run_q1_on_the_card(cuda):
+    """q1 through two TaskWorkerServer(device="cuda") behind the stage
+    DAG equals q1 on the CPU, and the workers' tasks launch
+    grouped_sums."""
+    from trino_tpu_torch.exec.remote import DistributedHostQueryRunner
+    from trino_tpu_torch.server.task_worker import TaskWorkerServer
+    workers = [TaskWorkerServer().start() for _ in range(2)]
+    try:
+        assert all(w.device.type == "cuda" for w in workers)
+        dist = DistributedHostQueryRunner([w.base_uri for w in workers])
+        assert dist.device.type == "cuda"
+        before = cg.LAUNCHES
+        got = dist.execute(TPCH_QUERIES[1]).rows
+        assert cg.LAUNCHES > before
+        want = LocalQueryRunner(device="cpu").execute(TPCH_QUERIES[1]).rows
+        _rows_match(got, want)
+    finally:
+        for w in workers:
+            w.stop()
+
+
+@pytest.mark.gpu
+def test_frames_round_trip_lanes_on_the_card(cuda):
+    """A result Batch on the card (strings, dates, doubles, a long
+    decimal, NULLs) framed and read back onto the card and onto the CPU:
+    the same rows, the lanes on the device asked for."""
+    from trino_tpu_torch import serde
+    r = LocalQueryRunner()
+    b = r.execute_batch(
+        "SELECT o_orderkey, o_orderpriority, o_orderdate, o_totalprice, "
+        "CAST(o_totalprice AS DECIMAL(30, 2)) AS big, "
+        "nullif(o_custkey % 7, 0) AS maybe FROM orders "
+        "WHERE o_orderkey < 2000")
+    assert b.device.type == "cuda"
+    frame = serde.serialize_batch(b)
+    on_card = serde.deserialize_batch(frame, "cuda")
+    on_cpu = serde.deserialize_batch(frame, "cpu")
+    assert on_card.device.type == "cuda" and on_cpu.device.type == "cpu"
+    assert on_card.to_pylist() == on_cpu.to_pylist() == b.to_pylist()

@@ -181,3 +181,66 @@ def test_the_coordinator_modules_are_covered():
               "trino_tpu_torch.exec.learnedstats",
               "trino_tpu_torch.exec.resultcache"):
         assert m in MODULES
+
+
+def test_the_worker_entry_point_loads_no_jax(tmp_path):
+    """``python -m trino_tpu_torch.server.main --role worker --device
+    cpu`` announces itself to a port coordinator, which runs one query
+    through it (the stage DAG), and the worker process imported neither
+    jax nor trino_tpu (``-X importtime``, as above)."""
+    import tempfile
+    import time
+    from trino_tpu_torch.client import StatementClient
+    from trino_tpu_torch.server.coordinator import Coordinator
+    co = Coordinator(device="cpu", history_dir=str(tmp_path)).start()
+    with tempfile.TemporaryFile("w+") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-X", "importtime", "-m",
+             "trino_tpu_torch.server.main", "--role", "worker",
+             "--device", "cpu", "--port", "0", "--coordinator-uri",
+             co.base_uri], cwd=str(PKG.parent), stdout=subprocess.PIPE,
+            stderr=log, text=True)
+        try:
+            banner = proc.stdout.readline()
+            assert "joined" in banner, banner
+            deadline = time.time() + 30
+            while not co.live_workers() and time.time() < deadline:
+                time.sleep(0.05)
+            assert len(co.live_workers()) == 1
+            res = StatementClient(co.base_uri).execute(
+                "SELECT n_regionkey, count(*) FROM nation "
+                "GROUP BY n_regionkey ORDER BY n_regionkey")
+            assert res.rows == [[r, 5] for r in range(5)]
+        finally:
+            proc.terminate()
+            proc.communicate(timeout=60)
+            co.stop()
+        log.seek(0)
+        err = log.read()
+    imported = {line.rsplit("|", 1)[-1].strip()
+                for line in err.splitlines()
+                if line.startswith("import time:")}
+    # the worker ran the query's tasks: its executor and exchange loaded
+    assert {"trino_tpu_torch.server.task_worker",
+            "trino_tpu_torch.exec.executor",
+            "trino_tpu_torch.serde"} <= imported
+    bad = sorted(m for m in imported if m in ("jax", "jaxlib", "trino_tpu")
+                 or m.startswith(("jax.", "jaxlib.", "trino_tpu.")))
+    assert bad == []
+
+
+def test_the_worker_slice_modules_are_covered():
+    """The worker slice's modules are the port's own copies, and the
+    checks above reach them."""
+    for m in ("trino_tpu_torch.serde", "trino_tpu_torch.verifier",
+              "trino_tpu_torch.verifier_main",
+              "trino_tpu_torch.stage.fragmenter",
+              "trino_tpu_torch.stage.repartition",
+              "trino_tpu_torch.stage.exchange",
+              "trino_tpu_torch.stage.scheduler",
+              "trino_tpu_torch.exec.remote", "trino_tpu_torch.exec.taskexec",
+              "trino_tpu_torch.fte.retry", "trino_tpu_torch.fte.speculate",
+              "trino_tpu_torch.fte.objectstore",
+              "trino_tpu_torch.server.task_worker",
+              "trino_tpu_torch.server.diagnostics"):
+        assert m in MODULES

@@ -1,11 +1,10 @@
 """The port's query history, learned operator statistics and result
 cache against the JAX package's.
 
-Counterparts of tests/test_query_history.py (all but
-``test_mpp_query_lands_in_system_runtime_tables``, which needs workers)
-and tests/test_result_cache.py (all but
-``test_repeat_query_hits_with_zero_dispatched_tasks``, likewise; ROADMAP
-11b). Registry and store cases drive the port's class and the JAX one
+Counterparts of tests/test_query_history.py and
+tests/test_result_cache.py, the cases through port workers
+(``TaskWorkerServer(device="cpu")``) among them. Registry and store
+cases drive the port's class and the JAX one
 through the same calls and compare what they hold; coordinator cases run
 the port's coordinator (``device="cpu"``) and compare its records with
 the JAX coordinator's where the two run the same statements.
@@ -592,3 +591,122 @@ def test_lru_and_capacity_bounds():
     assert got[3] is None                     # LRU-evicted
     assert got[4] is not None and got[4][2] == [[63] * 8]
     assert got == drive(TpuCache)
+
+
+# ---- the cases through port workers ------------------------------------------
+
+def _scrape(base_uri: str, name: str, **labels) -> float:
+    """Sum a counter family out of a live /metrics exposition."""
+    with urllib.request.urlopen(f"{base_uri}/metrics") as r:
+        text = r.read().decode()
+    want = [f'{k}="{v}"' for k, v in labels.items()]
+    total = 0.0
+    for line in text.splitlines():
+        if line.startswith(name) and all(w in line for w in want):
+            total += float(line.rsplit(None, 1)[-1])
+    return total
+
+
+def test_mpp_query_lands_in_system_runtime_tables(tmp_path):
+    """A TPC-H query through the default stage path of two port workers,
+    then its own record selected back from system.runtime.queries
+    (matching id, canonical plan key, cpu attribution), the workers'
+    learned selectivities from system.runtime.operator_stats, a failed
+    query by its error code, the cluster-wide metrics rollup, and after
+    a coordinator restart both /v1/history and /v1/stats; the rows
+    equal the JAX engine's."""
+    from trino_tpu.runner import LocalQueryRunner as TpuRunner
+    from trino_tpu_torch.server.task_worker import TaskWorkerServer
+    sql = ("SELECT n_name, count(*) c FROM nation "
+           "JOIN region ON n_regionkey = r_regionkey "
+           "GROUP BY n_name ORDER BY n_name")
+    LEARNED_STATS.clear()
+    workers = [TaskWorkerServer(device="cpu").start() for _ in range(2)]
+    co = Coordinator(device="cpu",
+                     worker_uris=[w.base_uri for w in workers],
+                     history_dir=str(tmp_path)).start()
+    try:
+        c = StatementClient(co.base_uri)
+        res = c.execute(sql)
+        assert res.rows == TpuRunner().execute(sql).rows
+        assert len(res.rows) == 25
+        _wait_until(lambda: co.history.get(res.query_id) is not None,
+                    what="history record")
+        rows = c.execute(
+            "SELECT query_id, state, plan_key, cpu_s, rows "
+            "FROM system.runtime.queries "
+            f"WHERE query_id = '{res.query_id}'").rows
+        assert len(rows) == 1
+        qid, state, plan_key, cpu_s, nrows = rows[0]
+        assert qid == res.query_id and state == "FINISHED"
+        assert plan_key, "canonical plan key missing from record"
+        assert cpu_s > 0, "no cpu attribution through the MPP path"
+        assert nrows == 25
+        ops = c.execute(
+            "SELECT plan_key, operator, selectivity, rows_per_s "
+            "FROM system.runtime.operator_stats "
+            "WHERE selectivity IS NOT NULL").rows
+        assert ops, "no learned operator stats after an MPP query"
+        assert all(sel >= 0 for _, _, sel, _ in ops)
+        with pytest.raises(ClientError):
+            c.execute("SELECT no_such_column FROM nation")
+        _wait_until(lambda: any(
+            r.get("error_name") for r in co.history.records()),
+            what="failed record")
+        failed = c.execute(
+            "SELECT query_id, error_code FROM system.runtime.queries "
+            "WHERE error_code IS NOT NULL ORDER BY wall_s DESC").rows
+        assert failed and all(code for _, code in failed)
+        m = c.execute(
+            "SELECT count(*) FROM system.runtime.metrics "
+            "WHERE sample = 'current'").rows
+        assert m[0][0] > 0
+        # the workers' scrapes join the rollup
+        nodes = c.execute(
+            "SELECT count(DISTINCT node) FROM system.runtime.metrics "
+            "WHERE sample = 'current'").rows
+        assert nodes[0][0] == 3
+    finally:
+        co.stop()
+        for w in workers:
+            w.stop()
+    LEARNED_STATS.clear()
+    co2 = Coordinator(device="cpu", history_dir=str(tmp_path)).start()
+    try:
+        recs = _get_json(f"{co2.base_uri}/v1/history")["records"]
+        assert any(r["query_id"] == res.query_id for r in recs)
+        assert _get_json(f"{co2.base_uri}/v1/stats")["tracked"] > 0
+    finally:
+        co2.stop()
+
+
+def test_repeat_query_hits_with_zero_dispatched_tasks(tmp_path):
+    """The second identical query is served from the coordinator's
+    cache: the port worker's task counter does not move, and the rows
+    equal the JAX engine's."""
+    from trino_tpu.runner import LocalQueryRunner as TpuRunner
+    from trino_tpu_torch.server.task_worker import TaskWorkerServer
+    worker = TaskWorkerServer(device="cpu").start()
+    co = Coordinator(device="cpu", worker_uris=[worker.base_uri],
+                     history_dir=str(tmp_path)).start()
+    try:
+        c = StatementClient(co.base_uri, session_properties=PROPS)
+        sql = "SELECT n_name FROM tpch.tiny.nation WHERE n_nationkey = 7"
+        first = c.execute(sql).rows
+        tasks_before = _scrape(worker.base_uri,
+                               "trino_tpu_worker_tasks_total")
+        hits_before = _scrape(co.base_uri,
+                              "trino_tpu_result_cache_lookups_total",
+                              result="hit")
+        second = c.execute(sql).rows
+        assert second == first == TpuRunner().execute(sql).rows \
+            == [["GERMANY"]]
+        assert _scrape(worker.base_uri,
+                       "trino_tpu_worker_tasks_total") == tasks_before
+        assert _scrape(co.base_uri,
+                       "trino_tpu_result_cache_lookups_total",
+                       result="hit") == hits_before + 1
+    finally:
+        co.stop()
+        worker.stop()
+        RESULT_CACHE.clear()    # the cache is process-wide

@@ -152,8 +152,7 @@ def test_http_status_of_unknown_routes_and_auth(pair):
 
 def test_not_yet_ported_routes_answer_501(pair):
     _, tco = pair
-    for method, path in (("GET", "/v1/announcement"),
-                         ("GET", "/v1/hotshapes"),
+    for method, path in (("GET", "/v1/hotshapes"),
                          ("GET", "/v1/continuous"),
                          ("POST", "/v1/ingest/clicks"),
                          ("GET", "/v1/trace/q1")):
@@ -437,8 +436,10 @@ def test_coordinator_needs_a_card_unless_cpu_is_asked(monkeypatch):
         Coordinator()
     with pytest.raises(NotImplementedError, match="not yet ported"):
         Coordinator(device="cpu", distributed=True)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        Coordinator(device="cpu", worker_uris=["http://127.0.0.1:1"])
+    # workers run on their own devices; the coordinator's default is
+    # the card all the same
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Coordinator(worker_uris=["http://127.0.0.1:1"])
 
 
 def test_merge_node_stats_equals_the_jax_engines():

@@ -2,9 +2,10 @@
 
 Counterpart of ``trino_tpu/analysis/sanity.py``, with the same validators
 over this package's plan nodes. It runs after every ``optimize()`` pass
-when the ``plan_validation`` session property is set; this package has no
-remote dispatch yet, so the fragment battery runs only when a caller asks
-for it; the stage-DAG boundary check waits for the stages.
+when the ``plan_validation`` session property is set, and always before
+the remote schedulers dispatch fragments or stages (exec/remote.py):
+the fragment battery, and for a stage DAG the boundary checks of
+``StageBoundaryChecker``.
 
 Reference parity: sql/planner/sanity/PlanSanityChecker.java and its
 validator battery (SURVEY.md A.4) — TypeValidator,
@@ -529,6 +530,172 @@ def _deep_eq(a, b) -> bool:
         return bool(a == b)
     except Exception:       # noqa: BLE001 — array-valued fields
         return a is b
+
+
+# --------------------------------------------------------------------------
+# the checker
+# --------------------------------------------------------------------------
+
+DEFAULT_VALIDATORS = (NoDuplicatePlanNodeIds(),
+                      ValidateDependenciesChecker(),
+                      TypeValidator(),
+                      JoinCriteriaChecker())
+
+FRAGMENT_VALIDATORS = DEFAULT_VALIDATORS + (SerdeRoundTripChecker(),)
+
+
+class PlanSanityChecker:
+    """Runs the validator battery; the first broken invariant raises a
+    ``PlanValidationError`` naming the validator + pass."""
+
+    def __init__(self, validators: Optional[tuple] = None):
+        self.validators = (DEFAULT_VALIDATORS if validators is None
+                           else tuple(validators))
+
+    def _run(self, validators, plan: PlanNode, pass_name: str) -> None:
+        PLAN_VALIDATIONS.inc()
+        # one schema memo for the whole battery: every validator walks
+        # every node, and output_schema() re-derives recursively
+        memo: Dict[int, Dict[str, Type]] = {}
+        for v in validators:
+            try:
+                v.validate(plan, memo)
+            except _Violation as e:
+                PLAN_VALIDATION_FAILURES.inc(validator=v.name)
+                raise PlanValidationError(v.name, str(e),
+                                          pass_name) from e
+
+    def validate(self, plan: PlanNode, pass_name: str = "") -> None:
+        self._run(self.validators, plan, pass_name)
+
+    def validate_fragment(self, plan: PlanNode,
+                          pass_name: str = "fragmenter"):
+        """Fragment battery: the plan checks plus wire-format
+        round-trip stability (the fragment is about to cross the
+        exchange/spool boundary as JSON). Returns the proven-stable
+        encoding so the dispatcher ships the bytes it validated
+        instead of encoding the fragment a second time."""
+        base = tuple(v for v in self.validators
+                     if not isinstance(v, SerdeRoundTripChecker))
+        self._run(base, plan, pass_name)
+        try:
+            return check_serde_round_trip(plan)
+        except _Violation as e:
+            PLAN_VALIDATION_FAILURES.inc(
+                validator=SerdeRoundTripChecker.name)
+            raise PlanValidationError(SerdeRoundTripChecker.name,
+                                      str(e), pass_name) from e
+
+
+def validate_plan(plan: PlanNode, pass_name: str = "",
+                  fragment: bool = False) -> None:
+    """One-shot convenience entry (the module-level analog of the
+    reference's PlanSanityChecker.validateFinalPlan)."""
+    checker = PlanSanityChecker()
+    if fragment:
+        checker.validate_fragment(plan, pass_name)
+    else:
+        checker.validate(plan, pass_name)
+
+
+class StageBoundaryChecker:
+    """Stage-DAG boundary validator (multi-stage MPP,
+    trino_tpu/stage/): partitioning-key closure and schema agreement
+    across every PartitionedOutput/RemoteSource pair. Unlike the
+    per-plan validators above it sees the WHOLE DAG — a single stage
+    plan is internally consistent even when its RemoteSource schema
+    silently drifted from what the producer stage actually emits, so
+    the edge itself is the thing to check:
+
+    - every RemoteSourceNode names an existing producer stage;
+    - the producer's plan is rooted in a PartitionedOutputNode whose
+      partition keys the producer body produces (key closure — the
+      per-plan dependency checker covers this half too);
+    - the consumer's RemoteSource schema matches the producer's output
+      symbol-for-symbol with agreeing types (a drift here executes,
+      then joins/aggregates garbage — the exact class of wrong-answer
+      bug a validator exists for);
+    - a hash-partitioned producer carries at least one key; a gather
+      producer carries none.
+    """
+
+    name = "StageBoundaryChecker"
+
+    def validate_dag(self, stages, root_plan: PlanNode) -> None:
+        by_sid = {st.sid: st for st in stages}
+        for st in stages:
+            po = st.plan
+            if not isinstance(po, PartitionedOutputNode):
+                raise _Violation(
+                    f"stage {st.sid} plan is rooted in "
+                    f"{_node_label(po)}, expected PartitionedOutput")
+            body_schema = _schema(po.source)
+            missing = [k for k in po.partition_keys
+                       if k not in body_schema]
+            if missing:
+                raise _Violation(
+                    f"stage {st.sid} partitions by {missing} which its "
+                    f"body does not produce "
+                    f"(available: {sorted(body_schema)[:12]}...)")
+            if po.kind == "hash" and not po.partition_keys:
+                raise _Violation(
+                    f"stage {st.sid} hash-partitions with no keys")
+            if po.kind in ("gather", "replicate") and po.partition_keys:
+                raise _Violation(
+                    f"stage {st.sid} {po.kind}s but carries partition "
+                    f"keys {list(po.partition_keys)}")
+        for where, plan in [(f"stage {st.sid}", st.plan)
+                            for st in stages] + [("root", root_plan)]:
+            for node in walk_plan(plan):
+                if not isinstance(node, RemoteSourceNode):
+                    continue
+                for fid in node.fragment_ids:
+                    producer = by_sid.get(fid)
+                    if producer is None:
+                        raise _Violation(
+                            f"{where}: RemoteSource names unknown "
+                            f"stage {fid}")
+                    pschema = _schema(producer.plan)
+                    for sym, t in node.schema.items():
+                        pt = pschema.get(sym)
+                        if pt is None:
+                            raise _Violation(
+                                f"{where}: RemoteSource expects symbol "
+                                f"'{sym}' which stage {fid} does not "
+                                f"produce (produces: "
+                                f"{sorted(pschema)[:12]}...)")
+                        if not types_agree(t, pt):
+                            raise _Violation(
+                                f"{where}: RemoteSource symbol '{sym}' "
+                                f"expects {t} but stage {fid} produces "
+                                f"{pt}")
+
+
+def validate_stage_dag(dag, checker: Optional["PlanSanityChecker"]
+                       = None,
+                       pass_name: str = "stage-fragmenter"
+                       ) -> Dict[int, dict]:
+    """The stage flavor of the always-on pre-dispatch battery
+    (exec/remote.py): every stage plan runs the FRAGMENT battery (its
+    wire form is what workers execute — serde round-trip included),
+    the root plan runs the base battery, and the StageBoundaryChecker
+    proves every exchange edge. Returns the round-trip-proven encoding
+    per stage id — the exact bytes the scheduler ships."""
+    checker = checker or PlanSanityChecker()
+    payloads: Dict[int, dict] = {}
+    for st in dag.stages:
+        payloads[st.sid] = checker.validate_fragment(
+            st.plan, pass_name)
+    checker.validate(dag.root_plan, pass_name)
+    boundary = StageBoundaryChecker()
+    PLAN_VALIDATIONS.inc()
+    try:
+        boundary.validate_dag(dag.stages, dag.root_plan)
+    except _Violation as e:
+        PLAN_VALIDATION_FAILURES.inc(validator=boundary.name)
+        raise PlanValidationError(boundary.name, str(e),
+                                  pass_name) from e
+    return payloads
 
 
 # --------------------------------------------------------------------------

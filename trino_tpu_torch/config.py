@@ -82,8 +82,8 @@ class EngineConfig:
         "TRINO_TPU_CLUSTER_MEMORY_POOL", 0)
     # The spool (fte/spool.py): its root directory (uid-scoped: query
     # results transit it), the TTL after which an abandoned query's
-    # entries are reaped, and the backend ("local"; the object-store
-    # backend comes with the worker slice).
+    # entries are reaped, and the backend ("local" or "memory", the
+    # object-store code path).
     spool_dir: str = os.environ.get(
         "TRINO_TPU_SPOOL_DIR",
         os.path.join(tempfile.gettempdir(),
@@ -91,6 +91,27 @@ class EngineConfig:
     spool_ttl_s: int = _env_int("TRINO_TPU_SPOOL_TTL", 3600)
     spool_backend: str = os.environ.get("TRINO_TPU_SPOOL_BACKEND",
                                         "local")
+    # the object-store spool's retry budget (fte/objectstore.py): tries
+    # a spool operation gets, with exponential backoff from this delay
+    objectstore_max_attempts: int = _env_int(
+        "TRINO_TPU_OBJECTSTORE_ATTEMPTS", 4)
+    objectstore_backoff_s: float = float(os.environ.get(
+        "TRINO_TPU_OBJECTSTORE_BACKOFF_S", "0.02"))
+    # The worker (server/task_worker.py, exec/taskexec.py): runner slots
+    # of the shared split scheduler (0 = max(4, 2 x cores)); the
+    # worker-local memory budget over live task reservations and the
+    # scan cache (0 = off); the BUSY shed factor over the runner slots
+    # (0 = never shed) and the time constant of its open-task EMA.
+    task_runner_threads: int = _env_int("TRINO_TPU_TASK_RUNNERS", 0)
+    # per-worker fetch-once cache of replicate exchange frames
+    # (stage/exchange.py); 0 disables it
+    replicate_cache_bytes: int = _env_int(
+        "TRINO_TPU_REPLICATE_CACHE", 64 << 20)
+    worker_memory_bytes: int = _env_int(
+        "TRINO_TPU_WORKER_MEMORY_BYTES", 0)
+    busy_shed_factor: int = _env_int("TRINO_TPU_BUSY_SHED_FACTOR", 8)
+    busy_shed_ema_s: float = _env_float("TRINO_TPU_BUSY_SHED_EMA_S",
+                                        2.0)
     # Restart-recovery persistence cap (fte/recovery.py): past it a
     # finished query is not re-pullable from a restarted coordinator.
     # 0 = no cap.

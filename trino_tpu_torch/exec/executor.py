@@ -40,6 +40,12 @@ node records a ``NodeStats`` (EXPLAIN ANALYZE, /v1/query), and each
 reservation also feeds the coordinator's cluster memory pool when the
 session carries one.
 
+Worker tasks (server/task_worker.py): ``scan_partition`` restricts every
+scan to the task's share of the splits, generated on this device; a
+stage task's RemoteSource leaves read its partition of the upstream
+stages through ``exchange_reader``; ``_Pre`` wraps the gathered output
+of a leaf fragment (exec/remote.py).
+
 Plan nodes, expressions and aggregates outside the ported slice raise
 ``QueryError("not yet ported: ...")``; nothing runs through another
 engine.
@@ -57,6 +63,7 @@ import torch
 
 from ..catalog import CatalogManager
 from ..columnar import (Batch, Column, StringDictionary, batch_from_pylist,
+                        empty_batch,
                         hi_lane_or_fill, is_nested, key_hi_lane, null_column,
                         pad_batch, take_clamped)
 from ..config import (CONFIG, MemoryLimitExceeded, capacity_for,
@@ -70,7 +77,8 @@ from ..ops.hll import APPROX_SET_BUCKET_BITS, bucket_bits_for_error
 from ..plan.nodes import (Aggregate, AggregationNode, AssignUniqueIdNode,
                           EnforceSingleRowNode, FilterNode, GroupIdNode,
                           JoinClause, JoinNode, LimitNode, MarkDistinctNode,
-                          OffsetNode, OutputNode, PlanNode, ProjectNode,
+                          OffsetNode, OutputNode, PartitionedOutputNode,
+                          PlanNode, ProjectNode, RemoteSourceNode,
                           SampleNode, SemiJoinNode, SetOpNode, SortNode,
                           TableScanNode, TopNNode, UnionNode, UnnestNode,
                           ValuesNode, WindowNode)
@@ -102,6 +110,24 @@ class QueryError(Exception):
         super().__init__(message)
         if error_name is not None:
             self.error_name = error_name
+
+
+class _Pre(PlanNode):
+    """An already computed Batch as a plan node, so that handlers recurse
+    through ``execute`` unchanged: the remote scheduler substitutes the
+    gathered output of its leaf fragments (exec/remote.py)."""
+
+    __slots__ = ("batch",)
+
+    def __init__(self, batch: Batch):
+        self.batch = batch
+
+    @property
+    def sources(self):
+        return ()
+
+    def output_schema(self):
+        return self.batch.schema()
 
 
 @dataclass
@@ -295,6 +321,23 @@ class Executor:
         self.stream_wait_ms: float = 0.0
         self.stream_ops: Dict[str, int] = {}
         self.stream_s: float = 0.0
+        # a worker task's split share: (part, nparts) makes every scan
+        # read only the splits whose index % nparts == part, generated
+        # on this device (server/task_worker.py)
+        self.scan_partition: Optional[Tuple[int, int]] = None
+        # the stage-DAG exchange: fid -> this task's partition of stage
+        # ``fid``'s output, as Batches on this device (stage/exchange.py;
+        # wired by the worker for stage tasks and by exec/remote.py for
+        # the coordinator's root stage)
+        self.exchange_reader = None
+
+    def split_share(self, splits: list) -> list:
+        """This task's share of a scan's splits (all of them outside a
+        worker task)."""
+        if self.scan_partition is None:
+            return splits
+        part, nparts = self.scan_partition
+        return [s for i, s in enumerate(splits) if i % nparts == part]
 
     def execute(self, node: PlanNode) -> Batch:
         check_interrupt(self.session)
@@ -467,8 +510,10 @@ class Executor:
         # stream through the double-buffered loop, and the partials fold
         # every 8 so that they stay bounded too
         stream_cap = agg_chunk_capacity(self, cur)
-        # a table the scan cache holds whole is aggregated in one pass
+        # a table the scan cache holds whole is aggregated in one pass;
+        # a worker task reads its own share of the splits
         whole = (None if stream_cap is not None
+                 or self.scan_partition is not None
                  else read_table_cached(conn, cur.handle, columns, par,
                                         self.device))
         partial, run_full = make_stream_runners(self, chain, node)
@@ -483,8 +528,10 @@ class Executor:
             return run_full(renamed(whole.to(self.device)))
         splits = None
         if stream_cap is None:
-            splits = conn.get_splits(cur.handle, par)
-            if len(splits) < 2:
+            splits = self.split_share(conn.get_splits(cur.handle, par))
+            if self.scan_partition is not None and not splits:
+                return None     # an empty share: the generic path
+            if len(splits) < 2 and self.scan_partition is None:
                 return None
         partials: List[Batch] = []
         finals: List[AggInput] = []
@@ -541,8 +588,9 @@ class Executor:
         conn = self.catalogs.connector(node.handle.catalog)
         columns = sorted(set(node.assignments.values()))
         par = int(self.session.get("task_concurrency")) or 1
-        whole = read_table_cached(conn, node.handle, columns, par,
-                                  self.device)
+        whole = (None if self.scan_partition is not None
+                 else read_table_cached(conn, node.handle, columns, par,
+                                        self.device))
         if whole is not None:
             self.count_input(whole)
         else:
@@ -553,11 +601,17 @@ class Executor:
             what = f"table scan of {node.handle.table}"
             exact = node.handle.constraint is None \
                 and node.handle.limit is None
+            all_splits = conn.get_splits(node.handle, par)
+            splits = self.split_share(all_splits)
+            if not splits:
+                # a worker whose share is empty returns no rows of the
+                # scan's schema
+                return empty_batch(dict(node.schema), self.device)
             if exact and hasattr(conn, "table_row_count"):
                 est = conn.table_row_count(node.handle)
                 if est:
-                    self._reserve(int(est), len(columns), what)
-            splits = conn.get_splits(node.handle, par)
+                    share = -(-int(est) * len(splits) // len(all_splits))
+                    self._reserve(share, len(columns), what)
             parts, rows = [], 0
             for sp in splits:
                 parts.append(self._read_split(conn, sp, columns))
@@ -569,6 +623,33 @@ class Executor:
         return Batch({sym: whole.column(col)
                       for sym, col in node.assignments.items()},
                      whole.num_rows)
+
+    def _exec_PartitionedOutputNode(self, node: PartitionedOutputNode
+                                    ) -> Batch:
+        # the partitioning happens at the page boundary (the worker cuts
+        # the result into partition frames, stage/repartition.py);
+        # executed here the node is the identity
+        return self.execute(node.source)
+
+    def _exec_RemoteSourceNode(self, node: RemoteSourceNode) -> Batch:
+        """This task's partition of every upstream stage's output,
+        through the exchange reader, in the fixed order the reader gives
+        (stage, then task). A failed pull fails the attempt, which the
+        stage scheduler retries."""
+        reader = self.exchange_reader
+        if reader is None:
+            raise QueryError(
+                "RemoteSourceNode executed outside a stage exchange "
+                "context (no exchange reader wired)")
+        batches: List[Batch] = []
+        for fid in node.fragment_ids:
+            batches.extend(b.to(self.device) for b in reader(int(fid)))
+        if not batches:
+            return empty_batch(dict(node.schema), self.device)
+        return device_concat(batches) if len(batches) > 1 else batches[0]
+
+    def _exec__Pre(self, node: _Pre) -> Batch:
+        return node.batch.to(self.device)
 
     def _exec_ValuesNode(self, node: ValuesNode) -> Batch:
         data = {s: [row[i] for row in node.rows]

@@ -196,11 +196,12 @@ def _slice_chunk(raw: Batch, assignments: Dict[str, str], lo: int,
 def host_scan_chunks(ex, scan: TableScanNode, chunk_cap: int
                      ) -> Iterator[Batch]:
     """Host chunks of at most ``chunk_cap`` rows of the scan, split by
-    split, each split read through the scan cache and staged once."""
+    split (a worker task's share of them), each split read through the
+    scan cache and staged once."""
     conn = ex.catalogs.connector(scan.handle.catalog)
     columns = sorted(set(scan.assignments.values()))
     par = int(ex.session.get("task_concurrency")) or 1
-    for sp in conn.get_splits(scan.handle, par):
+    for sp in ex.split_share(conn.get_splits(scan.handle, par)):
         raw = ex._read_split(conn, sp, columns)
         n = raw.num_rows_host()
         raw = _stage(raw, n)
@@ -300,7 +301,8 @@ def _map_lanes(b: Batch, fn) -> Batch:
 
 
 def check_interrupt(session) -> None:
-    """Raise when the query was cancelled or passed its deadline."""
+    """Raise when the query was cancelled or passed its deadline; on a
+    worker task, also the split scheduler's yield point."""
     from .executor import QueryError
     cancel = getattr(session, "cancel", None)
     if cancel is not None and cancel.is_set():
@@ -310,6 +312,12 @@ def check_interrupt(session) -> None:
         raise QueryError(
             "Query exceeded the maximum run time (query_max_run_time)",
             error_name="EXCEEDED_TIME_LIMIT")
+    yld = getattr(session, "split_yield", None)
+    if yld is not None:
+        # a worker task's shared split scheduler (exec/taskexec.py):
+        # plan nodes, splits and chunks are where a task hands its
+        # runner slot to a task of higher priority
+        yld()
 
 
 def run_streamed(ex, op: str, host_iter: Iterable[Batch],

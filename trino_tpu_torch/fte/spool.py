@@ -1,22 +1,37 @@
-"""The spool: durable, first-commit-wins storage of query output.
+"""Spooling exchange manager: durable fragment output.
 
-Counterpart of ``trino_tpu/fte/spool.py`` (host only). A
-``SpoolManager`` addresses entries by ``query/fragment.part/attempt``:
+Counterpart of ``trino_tpu/fte/spool.py`` (host only).
+
+Reference parity: trino-exchange-filesystem's FileSystemExchange — a
+completed task attempt writes its output pages to durable storage under
+an (exchange, partition, attempt) key; consumers read committed output
+only, and a duplicate attempt (task retry or speculative re-dispatch)
+is deduplicated at commit time, not at read time.
+
+Here the spool is a local directory tree (pluggable via the
+``SpoolManager`` interface; an object-store backend slots in by
+implementing the same five methods), addressed by
+``query/fragment.part/attempt``:
 
     <base>/<query_id>/f<fid>.p<part>/a<attempt>/page_00000.bin
     <base>/<query_id>/f<fid>.p<part>/COMMITTED      <- winning attempt
 
-Commit protocol (idempotent, first-commit-wins): frames land in a temp
-dir, the dir is atomically renamed to ``a<attempt>``, then the
+Commit protocol (idempotent, first-commit-wins): frames land in a
+temp dir, the dir is atomically renamed to ``a<attempt>``, then the
 ``COMMITTED`` marker is created with O_EXCL. Exactly one attempt wins
-the marker; a loser deletes its own frames and reports the winner. TTL
-cleanup reaps whole query dirs whose mtime is older than ``ttl_s``.
+the marker; a loser deletes its own frames and reports the winner, so
+a late duplicate is discarded rather than double-counted. TTL cleanup
+reaps whole query dirs whose mtime is older than ``ttl_s`` (crashed
+coordinators leave spools behind; the next query sweeps them).
 
-On a single-node coordinator the spool holds finished queries' results
-for restart recovery (fte/recovery.py); the workers' fragment output
-and the object-store backend come with the worker slice.
+The same addressing doubles as the SHUFFLE layer for multi-stage MPP
+(stage/ — Trino's spooled exchange is the same object): a
+stage task commits its hash-partitioned output under the
+attempt-independent exchange key ``<qid>.s<sid>.p<part>`` with frame
+index == partition index, consumers read single partitions through
+``read_frame``, and first-commit-wins gives per-stage task retries and
+speculation their dedup for free.
 """
-
 
 from __future__ import annotations
 
@@ -38,6 +53,11 @@ _M_SPOOL_READ = METRICS.counter(
 _M_SPOOL_DUPES = METRICS.counter(
     "trino_tpu_spool_duplicate_attempts_total",
     "Late duplicate task attempts discarded by first-commit-wins")
+_M_SPOOL_COALESCED = METRICS.counter(
+    "trino_tpu_spool_coalesced_commits_total",
+    "Spool commits satisfied by hard-linking the worker's already-"
+    "spooled frames (single-host double-write coalescing)")
+
 
 class SpoolManager:
     """Pluggable spool interface (the ExchangeManager SPI analog).
@@ -85,9 +105,12 @@ class SpoolManager:
         """Time-gated ``cleanup``: the full sweep scans every query
         under the base, so callers on a dispatch hot path run it at
         most once per TTL/4 (floor 60s). The gate's check-then-set is
-        under a lock: query threads call this concurrently, and an
-        unlocked gate lets two threads win one window and sweep
-        twice."""
+        under a lock — dispatch threads of concurrent queries all call
+        this, and an unsynchronized gate let two threads win the same
+        window and run two full-directory sweeps (the same
+        shared-state-race class analysis/lint.py flags; this one sits
+        across a module boundary, outside the lint's module-local
+        reachability, hence fixed by hand)."""
         now = time.time() if now is None else now
         gate = max(min(self.ttl_s / 4, 900.0), 60.0)
         with _SWEEP_GATE_LOCK:
@@ -106,9 +129,12 @@ class SpoolManager:
         return str(query_id) in getattr(self, "_released", ())
 
     def _mark_released(self, query_id: str) -> None:
-        # under a lock: release() is called from request threads and
-        # query threads concurrently, and the lazy check-then-set could
-        # otherwise lose a tombstone to a racing first release
+        # under a lock: release() is called from coordinator request
+        # threads and dispatch threads concurrently, and the lazy
+        # check-then-set could otherwise lose a tombstone to a racing
+        # first release (the cross-module race class
+        # analysis/lint.py's scheduler-thread -> spool edges exist to
+        # catch; this one was fixed alongside teaching it those edges)
         with _TOMBSTONE_LOCK:
             released = getattr(self, "_released", None)
             if released is None:
@@ -135,10 +161,15 @@ _TOMBSTONE_LOCK = threading.Lock()
 def make_spool(backend: Optional[str] = None,
                local_base_dir: Optional[str] = None,
                **kwargs) -> SpoolManager:
-    """Backend factory (config- or session-selected): ``local``
-    (default) is the directory-tree spool; ``memory``, the object-store
-    code path, comes with the worker slice. ``local_base_dir``
-    overrides the local backend's directory."""
+    """Backend factory (config/session-selected; the ExchangeManager
+    plugin-loading analog): ``local`` (default) is the directory-tree
+    spool; ``memory`` is the object-store code path over the in-memory
+    emulation — the single-process stand-in for an S3/GCS bucket (a
+    real bucket client slots in by implementing the ObjectStore
+    surface). ``local_base_dir`` overrides the local backend's
+    directory and is ignored by directory-less backends, so callers
+    with a role-scoped dir (the worker's ``-worker`` suffix) need not
+    duplicate the backend-alias resolution."""
     from ..config import CONFIG
     name = (backend or CONFIG.spool_backend or "local").lower()
     if name in ("local", "filesystem", ""):
@@ -146,10 +177,22 @@ def make_spool(backend: Optional[str] = None,
             kwargs.setdefault("base_dir", local_base_dir)
         return LocalDirSpool(**kwargs)
     if name in ("memory", "objectstore"):
-        raise ValueError("not yet ported: the object-store spool "
-                         f"backend '{backend}'")
+        from .objectstore import InMemoryObjectStore, ObjectStoreSpool
+        return ObjectStoreSpool(InMemoryObjectStore(), **kwargs)
     raise ValueError(f"unknown spool backend '{backend}' "
                      "(expected 'local' or 'memory')")
+
+
+def worker_spool_base() -> str:
+    """Default base directory of a WORKER's task spool — kept separate
+    from the coordinator's query-keyed spool so neither side's TTL
+    sweep can reap the other's live entries. One definition: the
+    worker binds it (server/task_worker.py) and the coordinator's
+    spool-first root gather reads through it (exec/remote.py) — a
+    drifted copy would silently degrade every gather to the HTTP
+    fallback."""
+    from ..config import CONFIG
+    return CONFIG.spool_dir + "-worker"
 
 
 def default_spool(backend: Optional[str] = None) -> SpoolManager:
@@ -214,6 +257,80 @@ class LocalDirSpool(SpoolManager):
                 f.write(frame)
         return self._seal_attempt(query_id, fragment_id, part, attempt,
                                   tmp, sum(len(f) for f in frames))
+
+    def commit_linked(self, query_id: str, fragment_id: int, part: int,
+                      attempt: int, src_dir: str,
+                      expect_frames: Optional[List[bytes]] = None) -> int:
+        """Commit by HARD-LINKING an already-spooled attempt directory
+        (the worker's task spool on the same host) instead of rewriting
+        the frame bytes — the single-host double-write coalescing of
+        the worker/coordinator spool pair. Hard links (not symlinks):
+        the worker's TTL sweep reaping its own dir only unlinks names,
+        the shared inodes survive under our layout. Falls back to a
+        byte copy on cross-device links.
+
+        ``expect_frames`` verifies the linked bytes: ``src_dir`` comes
+        from a worker-supplied header (X-TT-Spool-Dir), and with a
+        spool active the gather reads frames OFF the spool — so the
+        linked files, not the pulled pages, become the authoritative
+        combine input. Verification happens AFTER linking (so a
+        rename-swap between check and link is impossible); a mismatch
+        raises ``ValueError`` and nothing is published, letting the
+        caller fall back to the byte commit of the pages it actually
+        pulled. What this guards against is linking FOREIGN files —
+        a stale or hostile path whose contents differ from the pulled
+        pages. It deliberately does not defend against the worker
+        later rewriting its own frames through the shared inode: the
+        worker authored those bytes and could as easily have served
+        the altered version as pages, so that is no new capability —
+        a worker you cannot trust with its own output needs the
+        object-store backend, not link coalescing. Reading back bytes
+        the worker just wrote (page-cache hot) still beats re-writing
+        them."""
+        if self._is_released(query_id):
+            return attempt
+        tdir = self._task_dir(query_id, fragment_id, part)
+        adir = os.path.join(tdir, f"a{attempt}")
+        tmp = f"{adir}.tmp{os.getpid()}.{threading.get_ident()}"
+        os.makedirs(tmp, exist_ok=True)
+        try:
+            names = sorted(os.listdir(src_dir))
+            if expect_frames is not None \
+                    and len(names) != len(expect_frames):
+                raise ValueError(
+                    f"coalescing source {src_dir} has {len(names)} "
+                    f"frames, pulled {len(expect_frames)}")
+            copied_bytes = 0
+            for name in names:
+                src = os.path.join(src_dir, name)
+                dst = os.path.join(tmp, name)
+                try:
+                    os.link(src, dst)
+                except OSError:
+                    # cross-device (EXDEV etc): physically re-written
+                    # bytes must show in the written counter — and the
+                    # commit must NOT be reported as coalesced
+                    shutil.copyfile(src, dst)
+                    copied_bytes += os.path.getsize(dst)
+            if expect_frames is not None:
+                for name, frame in zip(names, expect_frames):
+                    with open(os.path.join(tmp, name), "rb") as f:
+                        if f.read() != frame:
+                            raise ValueError(
+                                f"coalescing source {src_dir}/{name} "
+                                "does not match the pulled frame")
+        except Exception:
+            shutil.rmtree(tmp, ignore_errors=True)
+            raise
+        won = self._seal_attempt(query_id, fragment_id, part, attempt,
+                                 tmp, written_bytes=copied_bytes)
+        if won == attempt and copied_bytes == 0:
+            # counted only when this attempt actually owns the marker
+            # AND every frame was truly linked: a coalesced loser is a
+            # discarded duplicate, and a cross-device copy fallback is
+            # a real double write, not a coalesced commit
+            _M_SPOOL_COALESCED.inc()
+        return won
 
     def _seal_attempt(self, query_id: str, fragment_id: int, part: int,
                       attempt: int, tmp: str, written_bytes: int) -> int:
@@ -330,6 +447,17 @@ class LocalDirSpool(SpoolManager):
             return None
         _M_SPOOL_READ.inc(len(data))
         return data
+
+    def attempt_dir(self, query_id: str, fragment_id: int,
+                    part: int) -> Optional[str]:
+        """Absolute directory of the COMMITTED attempt's frames, or
+        None — the handle a same-host consumer needs to coalesce its
+        own commit into hard links (``commit_linked``)."""
+        attempt = self.committed_attempt(query_id, fragment_id, part)
+        if attempt is None:
+            return None
+        return os.path.join(self._task_dir(query_id, fragment_id, part),
+                            f"a{attempt}")
 
     def release(self, query_id: str) -> None:
         self._mark_released(query_id)

@@ -14,8 +14,8 @@ coordinator (server/coordinator.py).
 - Gauges may also be fed by collector callbacks run at render time
   (query states, queue depth).
 
-The families are those the ported modules produce; the worker,
-exchange, stage and streaming-ingest families come with those modules.
+The families are those the ported modules produce; the streaming-ingest
+families come with that module.
 """
 
 from __future__ import annotations
@@ -349,6 +349,77 @@ LEARNED_STATS_SIZE = METRICS.gauge(
     "trino_tpu_learned_stats_entries",
     "(program key, operator, occurrence) entries currently tracked "
     "by the learned-stats registry")
+
+
+# the worker slice: the exchange between stages (stage/), the stage
+# scheduler, coordinator failover, the workers' shared split scheduler
+# (exec/taskexec.py) and their load shedding (server/task_worker.py)
+EXCHANGE_PARTITIONS = METRICS.counter(
+    "trino_tpu_exchange_partitions_total",
+    "Partitioned-exchange frames by direction", ("direction",))
+
+EXCHANGE_PARTITION_BYTES = METRICS.counter(
+    "trino_tpu_exchange_partition_bytes_total",
+    "Serialized partitioned-exchange bytes by direction", ("direction",))
+
+STAGES_SCHEDULED = METRICS.counter(
+    "trino_tpu_stages_scheduled_total",
+    "Worker stages dispatched by the stage-DAG scheduler")
+
+FAILOVER_PARTITIONS = METRICS.counter(
+    "trino_tpu_failover_partitions_total",
+    "Stage partitions handled during coordinator-failover resume by "
+    "outcome", ("outcome",))
+
+MPP_OVERLAP_RATIO = METRICS.gauge(
+    "trino_tpu_mpp_pipeline_overlap_ratio",
+    "Pipelined stage overlap of the most recent stage-DAG query")
+
+REPLICATE_CACHE = METRICS.counter(
+    "trino_tpu_exchange_replicate_cache_total",
+    "Per-worker fetch-once cache lookups on replicate exchange "
+    "edges, by outcome", ("result",))
+
+TASK_SCHED_QUANTA = METRICS.counter(
+    "trino_tpu_task_scheduler_quanta_total",
+    "Split/chunk quanta the shared task scheduler accounted, by "
+    "resource group (the fairness observable)", ("group",))
+
+TASK_SCHED_YIELDS = METRICS.counter(
+    "trino_tpu_task_scheduler_yields_total",
+    "Times a task handed its runner slot to a higher-priority task "
+    "at a split/chunk boundary")
+
+TASK_SCHED_RUNNABLE = METRICS.gauge(
+    "trino_tpu_task_scheduler_open_tasks",
+    "Tasks currently registered with the shared task scheduler "
+    "(running + waiting + blocked)")
+
+WORKER_BUSY_REJECTS = METRICS.counter(
+    "trino_tpu_worker_busy_rejections_total",
+    "Task dispatches this worker declined with the retryable BUSY "
+    "signal under sustained load (the stage scheduler's retry/"
+    "rotation machinery re-places them)")
+
+TASK_SCHED_QUEUE_DEPTH = METRICS.gauge(
+    "trino_tpu_task_scheduler_queue_depth",
+    "Tasks waiting for a runner slot in the shared split scheduler "
+    "(the backlog the EMA busy-shed smooths)")
+
+TASK_QUANTUM_SECONDS = METRICS.histogram(
+    "trino_tpu_task_quantum_seconds",
+    "Wall seconds per scheduler quantum (the work between two "
+    "split/chunk checkpoints)")
+
+EXCHANGE_WAIT_SECONDS = METRICS.histogram(
+    "trino_tpu_exchange_wait_seconds",
+    "Wall seconds a consumer task spent blocked on upstream exchange "
+    "commits with its runner slot released")
+
+TASK_SCHED_LEVEL_SECONDS = METRICS.counter(
+    "trino_tpu_task_scheduled_seconds_total",
+    "Scheduled wall seconds accounted by the shared split scheduler, "
+    "by multilevel-feedback level at grant time", ("level",))
 
 
 def write_exposition(handler) -> None:

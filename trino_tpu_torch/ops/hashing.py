@@ -48,6 +48,12 @@ def umod(x: torch.Tensor, m: int) -> torch.Tensor:
     return (2 * (shr(x, 1) % m) + (x & 1)) % m
 
 
+def partition_of(h: torch.Tensor, num_partitions: int) -> torch.Tensor:
+    """A u64 hash (int64 carrier) to its bucket in [0, num_partitions):
+    the unsigned remainder, as the JAX package's ``h % n`` on uint64."""
+    return umod(h, int(num_partitions))
+
+
 def to_signed_order(x: torch.Tensor) -> torch.Tensor:
     """Map u64 patterns to int64 values with the same order: flip the
     sign bit. Sorting and ``searchsorted`` then run on int64."""

@@ -279,6 +279,16 @@ class LocalQueryRunner:
                 pass
         return result
 
+    def execute_batch(self, sql: str) -> Batch:
+        """Run a query and return its result Batch, left on the device,
+        its columns keyed by display name (a repeated name gets ``$i``):
+        the task worker serialises it into page frames
+        (server/task_worker.py)."""
+        stmt = parse_statement(sql)
+        if not isinstance(stmt, A.QueryStatement):
+            raise QueryError("execute_batch supports queries only")
+        return self._run_query_batch(stmt.query)[2]
+
     def _run_query_batch(self, query: A.Query
                          ) -> Tuple[List[str], List[Type], Batch]:
         """Run a query for a write: its display names, its types and the

@@ -12,11 +12,17 @@ admission (server/resourcegroups.py), the cluster memory pool
 (server/memory.py), events, the query history and, when enabled, the
 result cache.
 
+Workers (``worker_uris``, or workers that join at run time through
+/v1/announcement) run the queries' fragments and stages on their own
+devices through ``DistributedHostQueryRunner`` (exec/remote.py); the
+coordinator scrapes their /metrics, runs the root stage on its device,
+and resumes a RUNNING query whose first coordinator died from its
+spooled execution manifest (``resume_query``, fte/recovery.py).
+``leak_report`` is server/diagnostics.py.
+
 Not yet ported (each raises or answers HTTP 501 with that message):
-workers and the mesh (``distributed=True``, ``worker_uris``,
-/v1/announcement), mid-flight failover, /v1/hotshapes, streaming
-(/v1/continuous, /v1/ingest), the OTLP view of /v1/trace/{id}, and
-``leak_report``.
+the mesh (``distributed=True``), /v1/hotshapes, streaming
+(/v1/continuous, /v1/ingest) and the OTLP view of /v1/trace/{id}.
 """
 
 from __future__ import annotations
@@ -54,6 +60,14 @@ _M_DETAIL_PLAN_ERRORS = METRICS.counter(
 # would have served (fte/recovery.py owns the definition)
 from ..fte.recovery import _M_RESULTS_RECOVERED  # noqa: E402
 from ..fte.recovery import json_value as _json_value  # noqa: E402
+
+# live worker membership (the discovery-service join/leave surface)
+_M_WORKER_JOINS = METRICS.counter(
+    "trino_tpu_worker_joins_total",
+    "Workers added to the active set via /v1/announcement")
+_M_WORKER_LEAVES = METRICS.counter(
+    "trino_tpu_worker_leaves_total",
+    "Workers removed from the active set via /v1/announcement")
 
 
 @dataclass
@@ -103,7 +117,7 @@ class _Query:
             return
         # the executor polls this event between plan nodes, so cancel
         # actually interrupts execution rather than just flipping state
-        self.session.cancel = self._cancel  # tt-lint: ignore[race-attr-write] run-thread setup; only this thread's executor reads session.cancel
+        self.session.cancel = self._cancel
         try:
             runner = runner_factory(self.session)
             result = runner.execute(self.sql)
@@ -120,7 +134,7 @@ class _Query:
                 except Exception:        # noqa: BLE001 — best-effort
                     pass
             if self._transition("FINISHED"):
-                self.result = result  # tt-lint: ignore[race-attr-write] sole writer (transition winner); readers tolerate the pre-publication None (query_results re-polls)
+                self.result = result
             elif persisted and on_discard is not None:
                 # cancel raced the persist between the state check and
                 # the transition: the query ends CANCELED, so the
@@ -134,7 +148,7 @@ class _Query:
                 return
             from ..errors import classify
             ename, ecode, etype = classify(e)
-            self.error = {  # tt-lint: ignore[race-attr-write] sole writer (FAILED-transition winner); readers see None until _done gates them
+            self.error = {
                 "message": str(e),
                 "errorCode": ecode,
                 "errorName": ename,
@@ -145,7 +159,7 @@ class _Query:
             }
         finally:
             if self.ended is None:
-                self.ended = time.time()  # tt-lint: ignore[race-attr-write] benign last-write with do_cancel's stamp; both are wall-clock end times
+                self.ended = time.time()
             self._done.set()
 
     def _retire_deadline_timer(self):
@@ -161,7 +175,7 @@ class _Query:
         self._cancel.set()
         if self._transition("CANCELED"):
             if self.ended is None:
-                self.ended = time.time()  # tt-lint: ignore[race-attr-write] benign last-write with run's finally stamp; both are wall-clock end times
+                self.ended = time.time()
             self._done.set()
         self._retire_deadline_timer()
 
@@ -183,7 +197,7 @@ class _Query:
                           "errorName": error_name, "errorType": etype}
         self._cancel.set()
         if self.ended is None:
-            self.ended = time.time()  # tt-lint: ignore[race-attr-write] benign last-write with run's finally stamp; both are wall-clock end times
+            self.ended = time.time()
         self._done.set()
         self._retire_deadline_timer()
         return True
@@ -200,7 +214,8 @@ class QueryTracker:
     lifecycle events (event/QueryMonitor.java:130,206)."""
 
     def __init__(self, make_runner, events=None, resource_groups=None,
-                 result_store=None, memory=None, history_sink=None):
+                 result_store=None, memory=None, manifest_store=None,
+                 history_sink=None):
         from .events import EventListenerManager
         self._queries: Dict[str, _Query] = {}
         self._lock = threading.Lock()
@@ -226,6 +241,11 @@ class QueryTracker:
         # queries persist their combine output + manifest here so a
         # client can re-pull results from a NEW coordinator process
         self.results = result_store
+        # mid-flight failover (fte/recovery.py ExecutionManifestStore):
+        # execution manifests spooled at dispatch time, released here
+        # once the query is terminal (any state — a finished, failed or
+        # canceled query must not be resumable by a later coordinator)
+        self.manifests = manifest_store
         # terminal-query observability (obs/history.py): called with
         # the query after EVERY terminal transition — normal runs AND
         # admission rejections — so the history store sees FINISHED,
@@ -255,6 +275,43 @@ class QueryTracker:
         self._launch(q, session, source)
         return q
 
+    def submit_resumed(self, q: _Query, runner_factory) -> _Query:
+        """Register and dispatch an already-rebuilt query — the
+        mid-flight half of coordinator failover (Coordinator.
+        resume_query built ``q`` from the spooled execution manifest
+        with its ORIGINAL id, slug, sql, session and submit/start
+        times). First registration wins: two clients whose polls both
+        miss must converge on ONE resumed execution. The returned
+        query is the registered one (which may be a concurrent
+        winner's, or even a plain recover_query entry that landed
+        first).
+
+        Resumption goes through the full admission path: the deadline
+        re-arms against the ORIGINAL submit time (a resume must not
+        extend query_max_run_time) and ``_launch`` routes through the
+        resource-group manager and cluster memory registration exactly
+        like a fresh submit — a failed-over query competes for slots,
+        it does not jump the queue."""
+        from .events import QueryCreatedEvent
+        session = q.session
+        from .events import SplitCompletedEvent
+        session.query_id = q.query_id
+        qid = q.query_id
+        session.on_split = lambda split_id, wall_s: \
+            self.events.split_completed(
+                SplitCompletedEvent(qid, split_id, wall_s))
+        with self._lock:
+            registered = self._queries.setdefault(q.query_id, q)
+        if registered is not q:
+            return registered
+        _M_STATES.inc(state="QUEUED")
+        self.events.query_created(QueryCreatedEvent(
+            q.query_id, q.sql, session.user, session.catalog,
+            session.schema))
+        self._arm_deadline(q, session)
+        self._launch(q, session, q.source, runner_factory=runner_factory)
+        return q
+
     def _arm_deadline(self, q: _Query, session: Session) -> None:
         limit = int(session.get("query_max_run_time") or 0)
         if limit > 0:
@@ -281,17 +338,20 @@ class QueryTracker:
             q.deadline_timer.daemon = True
             q.deadline_timer.start()
 
-    def _launch(self, q: _Query, session: Session, source: str) -> None:
+    def _launch(self, q: _Query, session: Session, source: str,
+                runner_factory=None) -> None:
         """Admission + execution of one registered query:
         resource-group routing, memory registration, the run thread,
-        and every piece of terminal bookkeeping."""
+        and every piece of terminal bookkeeping. ``runner_factory``
+        (default: the coordinator's) lets a failover resume substitute
+        a manifest-driven runner."""
         from .events import QueryCompletedEvent
         from .resourcegroups import QueryQueueFullError
         qid = q.query_id
 
         def run_and_release():
             if q.started is None:
-                q.started = time.time()  # tt-lint: ignore[race-attr-write] single stamp before the query publishes; readers tolerate None
+                q.started = time.time()
             if q.group is not None:
                 # the admitting group's identity and scheduling weight
                 # ride the session (the worker slice's task payloads
@@ -330,11 +390,16 @@ class QueryTracker:
                     # the entry so it cannot be recovered as FINISHED
                     self.results.release(query.query_id)
             try:
-                q.run(self._make_runner,
+                q.run(runner_factory or self._make_runner,
                       on_result=persist, on_discard=discard)
             finally:
                 if q.deadline_timer is not None:
                     q.deadline_timer.cancel()
+                if self.manifests is not None:
+                    # terminal in any state: the execution manifest
+                    # exists only to let another coordinator finish a
+                    # RUNNING query
+                    self.manifests.release(qid)
                 if self.memory is not None:
                     self.memory.unregister(qid)
                     session.memory = None
@@ -490,7 +555,8 @@ class Coordinator:
     """HTTP server wrapper. ``start()`` binds an ephemeral (or given)
     port; ``base_uri`` mirrors server/Server.java's announcement.
     Queries run on ``device`` (``cuda`` unless the caller passes
-    ``"cpu"``; an error without a card). ``scan_cache_bytes``, when
+    ``"cpu"``; an error without a card): the whole query on a single
+    node, the root stage when workers are live. ``scan_cache_bytes``, when
     given, is the process's scan-cache budget while it serves
     (``scan-cache.max-size`` in etc/config.properties)."""
 
@@ -507,28 +573,54 @@ class Coordinator:
         if distributed:
             raise NotImplementedError(
                 "not yet ported: distributed=True (the device mesh)")
-        if worker_uris:
-            raise NotImplementedError(
-                "not yet ported: worker_uris (the task worker)")
         self.device = resolve_device(device)
         self.node_id = f"coordinator-{uuid.uuid4().hex[:8]}"
         self.started = time.time()
         self.authenticator = authenticator
-        # a single node has no workers; the failure detector, when one
-        # is given, is started and stopped with the coordinator
-        self.workers: List[str] = []
+        # the worker fleet: queries dispatch fragments and stages to
+        # these processes (exec/remote.py). Membership is live: workers
+        # join and leave through /v1/announcement (add_worker,
+        # remove_worker), under one lock.
+        self.workers = [str(w).rstrip("/") for w in (worker_uris or [])]
+        self._members_lock = threading.Lock()
+        # the pre-warm readiness each worker announces (workers of the
+        # port announce none; boot-configured ones count as warm)
+        self.worker_prewarmed: Dict[str, bool] = {
+            w: True for w in self.workers}
+        # fault-tolerant execution (fte/): one failure detector and one
+        # spool shared by every query. The default detector learns from
+        # the schedulers' task failures; failure_detector.start() adds
+        # the heartbeat loop (server/main.py does for configured fleets;
+        # add_worker starts it for fleets born empty).
         self.failure_detector = failure_detector
-        # the spool (fte/spool.py) holds finished queries' results so
-        # that a restarted coordinator can serve their pages; a
-        # workerless coordinator has one only when asked
+        # a detector the caller gives is started with the coordinator;
+        # the default one of a configured fleet learns from task
+        # failures only, unless server/main.py starts its heartbeats
+        self._start_detector = failure_detector is not None
+        if self.failure_detector is None and self.workers:
+            from .failure import HeartbeatFailureDetector
+            self.failure_detector = HeartbeatFailureDetector()
+        if self.failure_detector is not None:
+            for w in self.workers:
+                self.failure_detector.add_service(w)
+        # the spool (fte/spool.py) carries fragment output of
+        # fault-tolerant queries and the finished queries' results that
+        # a restarted coordinator serves; a workerless coordinator has
+        # one only when asked
         self.spool = spool
-        if self.spool is None and spool_backend is not None:
+        if self.spool is None and (self.workers
+                                   or spool_backend is not None):
             from ..fte.spool import make_spool
             self.spool = make_spool(spool_backend)
         self.results = None
+        self.manifests = None
         if self.spool is not None:
-            from ..fte.recovery import ResultStore
+            from ..fte.recovery import (ExecutionManifestStore,
+                                        ResultStore)
             self.results = ResultStore(self.spool)
+            # execution manifests of RUNNING distributed queries live on
+            # the server spool, like results
+            self.manifests = ExecutionManifestStore(self.spool)
 
         # one shared CatalogManager: memory-connector state spans queries
         self._proto = LocalQueryRunner(catalogs=catalogs,
@@ -545,11 +637,57 @@ class Coordinator:
             # stats feed /v1/query and the history (OperatorStats is
             # always on in the reference coordinator)
             from ..exec.resultcache import CachingQueryRunner
-            return CachingQueryRunner(
-                LocalQueryRunner(session=session, device=self.device,
-                                 catalogs=self._catalogs,
-                                 collect_node_stats=True),
-                session, self._catalogs)
+
+            def wrap(runner):
+                return CachingQueryRunner(runner, session,
+                                          self._catalogs)
+
+            live = self.live_workers()
+            if live:
+                from ..exec.remote import DistributedHostQueryRunner
+                # SET SESSION spool_backend overrides the server's
+                # fragment spool for this query (result persistence
+                # stays on the server spool)
+                backend = str(session.get("spool_backend") or "")
+                spool = self.spool
+                if backend:
+                    from ..fte.spool import default_spool
+                    spool = default_spool(backend)
+                # mid-flight failover: the runner persists the execution
+                # manifest at dispatch time, with the tracked query's
+                # identity, admission and timing
+                meta = None
+                if self.manifests is not None:
+                    tq = self.tracker.get(
+                        getattr(session, "query_id", "") or "")
+                    if tq is not None:
+                        meta = {
+                            "queryId": tq.query_id,
+                            "slug": tq.slug,
+                            "sql": tq.sql,
+                            "user": session.user,
+                            "source": tq.source,
+                            "resourceGroup": getattr(
+                                tq.group, "full_name", "global")
+                            if tq.group is not None else "global",
+                            "submitEpoch": tq.created,
+                            "startedEpoch": tq.started,
+                        }
+                return wrap(DistributedHostQueryRunner(
+                    live, session=session, catalogs=self._catalogs,
+                    collect_node_stats=True,
+                    failure_detector=self.failure_detector,
+                    spool=spool,
+                    manifest_store=self.manifests,
+                    manifest_meta=meta,
+                    # live membership: workers that join mid-query
+                    # become retry and speculation targets
+                    worker_supplier=self.live_workers,
+                    device=self.device))
+            return wrap(LocalQueryRunner(session=session,
+                                         device=self.device,
+                                         catalogs=self._catalogs,
+                                         collect_node_stats=True))
 
         events = EventListenerManager()
         for listener in (event_listeners or []):
@@ -588,10 +726,14 @@ class Coordinator:
                                                 "learned_stats.json")
         self._learned_saved_at = 0.0
         LEARNED_STATS.load(self._learned_stats_path)
+        # resume_query builds manifest-driven runners through the same
+        # factory (live membership, failure detector, spool wiring)
+        self._make_runner = make_runner
         self.tracker = QueryTracker(make_runner, events,
                                     resource_groups,
                                     result_store=self.results,
                                     memory=self.memory,
+                                    manifest_store=self.manifests,
                                     history_sink=self._on_query_terminal)
         self._register_metric_collectors()
         self._httpd = ThreadingHTTPServer(("127.0.0.1", port),
@@ -652,7 +794,7 @@ class Coordinator:
         self._thread = threading.Thread(
             target=self._httpd.serve_forever, daemon=True)
         self._thread.start()
-        if self.failure_detector is not None:
+        if self._start_detector:
             self.failure_detector.start()
         return self
 
@@ -873,6 +1015,166 @@ class Coordinator:
                      ((q.ended or time.time()) - q.created) * 1000)}
                 for q in self.tracker.all()]
 
+    # ---- live worker membership --------------------------------------
+    def live_workers(self) -> List[str]:
+        """Current worker set minus nodes the failure detector reports
+        dead — the per-dispatch view the schedulers consume. Pre-warmed
+        workers sort first (stable within each class), so a query's
+        initial task fan-out lands on nodes whose hot-shape programs
+        are already compiled; a scheduler's mid-query re-syncs are
+        append-only and unaffected (exec/remote.py _sync_workers)."""
+        detector = self.failure_detector
+        with self._members_lock:
+            workers = list(self.workers)
+            warm = dict(self.worker_prewarmed)
+        return sorted(
+            (w for w in workers
+             if detector is None or detector.is_alive(w)),
+            key=lambda w: not warm.get(w, False))
+
+    def add_worker(self, uri: str,
+                   prewarmed: Optional[bool] = None) -> bool:
+        """Join a worker at runtime (/v1/announcement POST; reference:
+        DiscoveryNodeManager absorbing a service announcement). A
+        joining worker immediately becomes a retry / speculation
+        target for in-flight queries and a full member for new ones.
+        Idempotent: re-announcement of a known worker is a no-op for
+        membership but still refreshes its pre-warm readiness flag —
+        that is how a joiner's background warm-up completion reaches
+        the scheduler (the worker re-announces with prewarmed=true)."""
+        uri = str(uri).rstrip("/")
+        if not uri:
+            return False
+        with self._members_lock:
+            # the whole join — membership, detector/spool bootstrap —
+            # runs under the lock: concurrent first announcements must
+            # not construct two detectors (a worker registered in the
+            # discarded one would never be heartbeat-probed)
+            if prewarmed is not None:
+                self.worker_prewarmed[uri] = bool(prewarmed)
+            if uri in self.workers:
+                return False
+            self.workers.append(uri)
+            if self.failure_detector is None:
+                from .failure import HeartbeatFailureDetector
+                self.failure_detector = HeartbeatFailureDetector()
+            self.failure_detector.add_service(uri)
+            # a fleet born empty never started its heartbeat loop;
+            # start() is idempotent for one already running
+            self.failure_detector.start()
+            if self.spool is None:
+                # first worker ever: the cluster just became
+                # distributed — it needs the spool (and with it
+                # restart recovery and mid-flight failover)
+                from ..fte.recovery import (ExecutionManifestStore,
+                                            ResultStore)
+                from ..fte.spool import make_spool
+                self.spool = make_spool()
+                self.results = ResultStore(self.spool)
+                self.tracker.results = self.results
+                self.manifests = ExecutionManifestStore(self.spool)
+                self.tracker.manifests = self.manifests
+        _M_WORKER_JOINS.inc()
+        return True
+
+    def remove_worker(self, uri: str) -> bool:
+        """Graceful leave (/v1/announcement DELETE). Ungraceful deaths
+        need no call — the heartbeat detector sidelines them and the
+        retry engine routes around."""
+        uri = str(uri).rstrip("/")
+        with self._members_lock:
+            self.worker_prewarmed.pop(uri, None)
+            if uri not in self.workers:
+                return False
+            self.workers.remove(uri)
+        if self.failure_detector is not None:
+            self.failure_detector.remove_service(uri)
+        _M_WORKER_LEAVES.inc()
+        return True
+
+    # ---- coordinator-restart result recovery -------------------------
+
+    # ---- mid-flight query resumption (coordinator failover) ----------
+    def resume_query(self, query_id: str,
+                     slug: Optional[str] = None) -> Optional[_Query]:
+        """Finish a RUNNING query dispatched by a coordinator that
+        died: the mid-flight half of failover, next to
+        ``recover_query``'s FINISHED half. The execution manifest
+        spooled at dispatch time carries the stage DAG's serde-proven
+        wire payloads, the fan-out, the session/admission context and
+        the ORIGINAL submit/start times; stage progress is read off
+        the exchange spool's first-commit-wins COMMITTED markers, so
+        only the partitions the dead coordinator had NOT committed are
+        re-dispatched (exec/remote.py resume + stage/scheduler.py
+        resume_spool).
+
+        Gated on retry_policy=TASK (the manifest is only written under
+        it, and a NONE query's fragments never touch the spool — there
+        is nothing safe to resume). Returns None when no slug-matching
+        manifest exists, resumption is gated off, or no workers are
+        live; the caller falls through to 404 and the client's retry
+        loop keeps polling."""
+        if self.manifests is None:
+            return None
+        mf = self.manifests.load(query_id, slug)
+        if mf is None:
+            return None
+        if not self.live_workers():
+            return None
+        session = Session(catalog=mf.get("catalog"),
+                          schema=mf.get("schema"),
+                          user=str(mf.get("user") or "user"))
+        for name, value in (mf.get("properties") or {}).items():
+            try:
+                session.set(str(name), value)
+            except (KeyError, TypeError, ValueError):
+                continue    # property from a newer/older build
+        from ..fte.retry import RetryPolicy
+        if not RetryPolicy.from_session(session).enabled:
+            return None
+        q = _Query(str(mf.get("queryId") or query_id),
+                   str(mf.get("slug")), str(mf.get("sql") or ""),
+                   session)
+        q.source = str(mf.get("source") or "")
+        # original-time accounting: queued/elapsed/deadline anchor at
+        # the FIRST coordinator's submit — failover must not hand the
+        # query a fresh query_max_run_time budget
+        try:
+            q.created = float(mf.get("submitEpoch") or q.created)
+        except (TypeError, ValueError):
+            pass
+        q.submit_mono = time.monotonic() - max(
+            time.time() - q.created, 0.0)
+        started = mf.get("startedEpoch")
+        if started:
+            try:
+                q.started = float(started)
+            except (TypeError, ValueError):
+                pass
+        make_runner = self._make_runner
+
+        def resume_runner_factory(sess: Session):
+            runner = make_runner(sess)
+
+            class _ResumeRunner:
+                """execute() ignores the SQL text: the plan was
+                fragmented, proven and spooled by the dead
+                coordinator; re-planning here could fragment
+                differently and orphan the committed partitions."""
+
+                def execute(self, _sql: str):
+                    return runner.resume(mf)
+
+            return _ResumeRunner()
+
+        registered = self.tracker.submit_resumed(q, resume_runner_factory)
+        if registered is q:
+            # counted only for the registration winner: a losing
+            # concurrent resume (or one beaten by recover_query) did
+            # not resume anything
+            self.manifests.mark_resumed()
+        return registered
+
     # ---- query history & learned stats (obs/history.py) ---------------
     def _on_query_terminal(self, q) -> None:
         """Terminal-query bookkeeping, called from the tracker's run
@@ -896,15 +1198,25 @@ class Coordinator:
             # checkpoint throttle: racing terminal threads may both
             # save — harmless (atomic rename, same content modulo a
             # few observations); stop() takes the final one
-            self._learned_saved_at = now  # tt-lint: ignore[race-attr-write] benign double-save
+            self._learned_saved_at = now
             LEARNED_STATS.save(self._learned_stats_path)
 
     def _collect_cluster_metrics(self) -> dict:
-        """{node: parsed exposition}: this coordinator's registry (the
-        rollup behind system.runtime.metrics; workers' scrapes join it
-        with the worker slice)."""
+        """{node: parsed exposition}: this coordinator's registry plus a
+        best-effort /metrics scrape of every live worker (the rollup
+        behind system.runtime.metrics)."""
         from ..obs.metrics import parse_exposition
-        return {self.node_id: parse_exposition(METRICS.render())}
+        nodes = {self.node_id: parse_exposition(METRICS.render())}
+        import urllib.request
+        for w in self.live_workers():
+            try:
+                with urllib.request.urlopen(f"{w}/metrics",
+                                            timeout=2.0) as resp:
+                    nodes[w] = parse_exposition(
+                        resp.read().decode("utf-8", "replace"))
+            except Exception:    # noqa: BLE001 — scrape best-effort
+                continue
+        return nodes
 
     def history_infos(self) -> list:
         """system.runtime.queries rows: live QUEUED/RUNNING queries
@@ -949,9 +1261,18 @@ class Coordinator:
 
     # ---- SystemProvider SPI (connectors/system.py) --------------------
     def node_infos(self) -> list:
-        return [{"nodeId": self.node_id, "uri": self.base_uri,
-                 "nodeVersion": "trino-tpu-0.1", "coordinator": True,
-                 "state": "active"}]
+        nodes = [{"nodeId": self.node_id, "uri": self.base_uri,
+                  "nodeVersion": "trino-tpu-0.1", "coordinator": True,
+                  "state": "active"}]
+        detector = self.failure_detector
+        for w in list(self.workers):
+            state = "active"
+            if detector is not None and not detector.is_alive(w):
+                state = "failed"
+            nodes.append({"nodeId": w, "uri": w,
+                          "nodeVersion": "trino-tpu-0.1",
+                          "coordinator": False, "state": state})
+        return nodes
 
     def resource_group_infos(self) -> list:
         if self.resource_groups is None:
@@ -968,8 +1289,10 @@ class Coordinator:
 
     def leak_report(self, stuck_after_s: float = 3600.0,
                     orphan_grace_s: float = 5.0):
-        raise NotImplementedError(
-            "not yet ported: leak_report (server/diagnostics.py)")
+        """Leak and orphan snapshot (server/diagnostics.py)."""
+        from .diagnostics import leak_report
+        return leak_report(self, stuck_after_s=stuck_after_s,
+                           orphan_grace_s=orphan_grace_s)
 
     def drain(self, timeout: float = 30.0) -> bool:
         """Graceful shutdown: wait for active queries to finish
@@ -1197,7 +1520,25 @@ def _make_handler(co: Coordinator):
                 self._send(200, co.query_results(q, 0))
                 return
             if path == "/v1/announcement":
-                self._not_ported("/v1/announcement (the task worker)")
+                # worker join; idempotent, so workers re-announce on a
+                # cadence
+                n = int(self.headers.get("Content-Length", 0))
+                prewarmed = None
+                try:
+                    body = json.loads(self.rfile.read(n) or b"{}")
+                    uri = str(body.get("uri", "")).strip() \
+                        if isinstance(body, dict) else ""
+                    if isinstance(body, dict) \
+                            and "prewarmed" in body:
+                        prewarmed = bool(body.get("prewarmed"))
+                except (ValueError, TypeError):
+                    uri = ""
+                if not uri:
+                    self._send(400, {"error": "missing worker uri"})
+                    return
+                joined = co.add_worker(uri, prewarmed=prewarmed)
+                self._send(200, {"joined": joined,
+                                 "workers": co.live_workers()})
                 return
             parts = [p for p in path.split("/") if p]
             if len(parts) == 3 and parts[:2] == ["v1", "ingest"]:
@@ -1245,7 +1586,13 @@ def _make_handler(co: Coordinator):
                 self._send(200, co.query_infos())
                 return
             if path == "/v1/announcement":
-                self._not_ported("/v1/announcement (the task worker)")
+                detector = co.failure_detector
+                self._send(200, {"workers": [
+                    {"uri": w,
+                     "alive": (detector is None
+                               or detector.is_alive(w)),
+                     "prewarmed": co.worker_prewarmed.get(w, False)}
+                    for w in list(co.workers)]})
                 return
             if path == "/v1/hotshapes":
                 self._not_ported("/v1/hotshapes (the worker pre-warm feed)")
@@ -1310,6 +1657,12 @@ def _make_handler(co: Coordinator):
                     # process ran: rebuild it from the spooled manifest
                     # (slug-checked) and keep paging
                     q = co.recover_query(parts[3], parts[4])
+                if q is None:
+                    # no FINISHED result on the spool: the old
+                    # coordinator died mid-flight, so resume the RUNNING
+                    # query from its execution manifest and let this
+                    # poll long-poll the resumed run
+                    q = co.resume_query(parts[3], parts[4])
                 if q is None or q.slug != parts[4]:
                     self._send(404, {"error": "no such query"})
                     return
@@ -1324,7 +1677,11 @@ def _make_handler(co: Coordinator):
             parsed = urlparse(self.path)
             parts = [p for p in parsed.path.split("/") if p]
             if parsed.path == "/v1/announcement":
-                self._not_ported("/v1/announcement (the task worker)")
+                from urllib.parse import parse_qs
+                uri = (parse_qs(parsed.query).get("uri") or [""])[0]
+                left = co.remove_worker(uri) if uri else False
+                self._send(200, {"left": left,
+                                 "workers": co.live_workers()})
                 return
             if len(parts) == 3 and parts[:2] == ["v1", "continuous"]:
                 self._not_ported("/v1/continuous (streaming)")
@@ -1348,6 +1705,17 @@ def _make_handler(co: Coordinator):
                         owner = str(mf.get("slug")) if mf else None
                     if slug is not None and slug == owner:
                         co.results.release(parts[3])
+                        if co.manifests is not None:
+                            # an abandoned query must not be resumable
+                            co.manifests.release(parts[3])
+                    elif slug is not None and co.manifests is not None:
+                        # the presented slug may still match the
+                        # execution manifest of a query whose
+                        # coordinator died mid-flight: reap it under
+                        # its own slug, never anyone else's
+                        if co.manifests.load(parts[3],
+                                             slug=slug) is not None:
+                            co.manifests.release(parts[3])
                 # 204 carries no body (RFC 7230; a body would desync
                 # keep-alive clients)
                 self.send_response(204)

@@ -5,10 +5,12 @@ config model, ``etc/config.properties`` (http-server.http.port,
 resource-groups.config-file, password-authenticator.file,
 query.max-memory, scan-cache.max-size, spool.backend, plugin.load) and
 ``etc/catalog/*.properties`` (connector.name=tpch|memory|...,
-through plugin.py). The coordinator serves on ``--device`` (default
-``cuda``; no card is an error unless ``--device cpu`` is given). A
-config naming the worker role (``node.role=worker``) or workers
-(``worker.uris``) is refused: workers are not yet ported.
+through plugin.py). The node runs on ``--device`` (default ``cuda``;
+no card is an error unless ``--device cpu`` is given). ``--role worker``
+(``node.role=worker``) starts a task worker (server/task_worker.py) that
+announces itself to ``--coordinator-uri`` (``discovery.uri``) and
+re-announces on a cadence; a coordinator dispatches to ``--workers``
+(``worker.uris``) and to every worker that announces itself.
 """
 
 from __future__ import annotations
@@ -71,27 +73,35 @@ def build_catalogs(etc_dir: Optional[str],
     return mgr
 
 
-def coordinator_from_etc(etc_dir: Optional[str], device="cuda",
-                         port: Optional[int] = None,
-                         spool_backend: Optional[str] = None):
-    """The Coordinator (not yet started) that ``etc_dir`` describes:
-    config.properties and catalog/*.properties; ``port`` and
-    ``spool_backend`` beat their properties."""
+def _etc_properties(etc_dir: Optional[str]) -> Dict[str, str]:
     props: Dict[str, str] = {}
     if etc_dir:
         cfg = os.path.join(etc_dir, "config.properties")
         if os.path.exists(cfg):
             props = load_properties(cfg)
+    return props
+
+
+def coordinator_from_etc(etc_dir: Optional[str], device="cuda",
+                         port: Optional[int] = None,
+                         spool_backend: Optional[str] = None,
+                         workers: Optional[str] = None):
+    """The Coordinator (not yet started) that ``etc_dir`` describes:
+    config.properties and catalog/*.properties; ``port``,
+    ``spool_backend`` and ``workers`` (comma-separated base URIs) beat
+    their properties. A worker's config (``node.role=worker``) is
+    refused: start it with ``--role worker``."""
+    props = _etc_properties(etc_dir)
     # plugin.load=<module>[,<module>...] loads plugin modules before the
     # catalogs resolve
     plugins = [m for m in props.get("plugin.load", "").split(",") if m]
     if port is None:
         port = int(props.get("http-server.http.port", "8080"))
-    # a shared etc/ may name the cluster roles that wait for the worker
-    # slice: refuse them rather than serve as a lone coordinator
     if props.get("node.role", "coordinator") == "worker":
-        raise SystemExit("not yet ported: the worker role")
-    workers = [w.strip() for w in props.get("worker.uris", "").split(",")
+        raise SystemExit("config.properties names the worker role: "
+                         "start this node with --role worker")
+    workers = [w.strip() for w in
+               (workers or props.get("worker.uris", "")).split(",")
                if w.strip()]
 
     from .coordinator import Coordinator
@@ -142,13 +152,44 @@ def main(argv=None) -> int:
                     help="torch device the queries run on: cuda "
                          "(default) or cpu")
     ap.add_argument("--spool-backend", default=None,
-                    help="spool backend for restart recovery: 'local' "
-                         "(directory tree); also spool.backend in "
-                         "config.properties / env TRINO_TPU_SPOOL_BACKEND")
+                    help="spool backend: 'local' (directory tree) or "
+                         "'memory' (the object-store code path); also "
+                         "spool.backend in config.properties / env "
+                         "TRINO_TPU_SPOOL_BACKEND")
+    ap.add_argument("--role", choices=("coordinator", "worker"),
+                    default=None,
+                    help="worker starts a task worker instead of a "
+                         "coordinator (node.role in config.properties). "
+                         "Default: coordinator")
+    ap.add_argument("--workers", default=None,
+                    help="[coordinator] comma-separated worker base URIs "
+                         "to dispatch fragments to; also worker.uris in "
+                         "config.properties")
+    ap.add_argument("--coordinator-uri", default=None,
+                    help="[worker] coordinator to announce this worker "
+                         "to (/v1/announcement, again on a cadence); "
+                         "also discovery.uri in config.properties")
+    ap.add_argument("--coordinator-token", default=None,
+                    help="[worker] Bearer token sent with every "
+                         "announcement; also discovery.token in "
+                         "config.properties / env "
+                         "TRINO_TPU_COORDINATOR_TOKEN")
+    ap.add_argument("--task-runners", type=int, default=None,
+                    help="[worker] runner slots of the shared split "
+                         "scheduler (0 = max(4, 2 x cores)); also "
+                         "task.runner-threads in config.properties / env "
+                         "TRINO_TPU_TASK_RUNNERS")
     args = ap.parse_args(argv)
 
+    props = _etc_properties(args.etc_dir)
+    if (args.role or props.get("node.role", "coordinator")) == "worker":
+        return _worker_main(args, props)
     co = coordinator_from_etc(args.etc_dir, args.device, args.port,
-                              args.spool_backend).start()
+                              args.spool_backend, args.workers).start()
+    if co.workers and co.failure_detector is not None:
+        # a configured fleet gets the heartbeat loop on top of the
+        # schedulers' task-failure feedback
+        co.failure_detector.start()
     print(f"trino-tpu-torch coordinator on {co.device} listening on "
           f"{co.base_uri} (web UI: {co.base_uri}/ui)", flush=True)
     _announce_fault_points()
@@ -181,6 +222,55 @@ def _announce_fault_points() -> None:
           + ", ".join(f"{site}={action}"
                       for site, action in sorted(armed.items())),
           file=sys.stderr)
+
+
+def _worker_main(args, props: Dict[str, str]) -> int:
+    """Worker role: a TaskWorkerServer on ``--device`` that joins a
+    coordinator's worker set at run time (/v1/announcement) and leaves
+    it on SIGTERM or SIGINT."""
+    from .task_worker import TaskWorkerServer
+    port = args.port if args.port is not None else \
+        int(props.get("http-server.http.port", "0"))
+    spool_backend = (args.spool_backend
+                     or props.get("spool.backend") or None)
+    plugins = [m for m in props.get("plugin.load", "").split(",") if m]
+    task_runners = args.task_runners
+    if task_runners is None and props.get("task.runner-threads"):
+        task_runners = int(props["task.runner-threads"])
+    srv = TaskWorkerServer(
+        port=port, spool_backend=spool_backend,
+        task_runners=task_runners, device=args.device,
+        # the worker resolves the catalogs the coordinator dispatches
+        # fragments against
+        catalogs=build_catalogs(args.etc_dir, plugins,
+                                args.device)).start()
+    coordinator_uri = (args.coordinator_uri
+                       or props.get("discovery.uri") or None)
+    token = (args.coordinator_token or props.get("discovery.token")
+             or os.environ.get("TRINO_TPU_COORDINATOR_TOKEN") or None)
+    if coordinator_uri:
+        joined = srv.announce(coordinator_uri, token=token)
+        print(f"trino-tpu-torch worker {srv.node_id} on {srv.device} "
+              f"listening on {srv.base_uri} "
+              f"({'joined' if joined else 'announcing to'} "
+              f"{coordinator_uri})", flush=True)
+    else:
+        print(f"trino-tpu-torch worker {srv.node_id} on {srv.device} "
+              f"listening on {srv.base_uri} (standalone: pass "
+              "--coordinator-uri to join a cluster)", flush=True)
+    _announce_fault_points()
+
+    stop = {"flag": False}
+
+    def on_signal(sig, frame):
+        srv.stop()               # graceful leave + server shutdown
+        stop["flag"] = True
+
+    signal.signal(signal.SIGINT, on_signal)
+    signal.signal(signal.SIGTERM, on_signal)
+    while not stop["flag"]:
+        time.sleep(0.2)
+    return 0
 
 
 if __name__ == "__main__":

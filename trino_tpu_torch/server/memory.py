@@ -32,8 +32,8 @@ import threading
 from typing import Callable, Dict, List, Optional, Tuple
 
 from ..exec.executor import QueryError
-from ..obs.metrics import (MEMORY_KILLS, MEMORY_POOL_BYTES,
-                           MEMORY_POOL_QUERIES)
+from ..obs.metrics import (LIVE_MEMORY_BEATS, MEMORY_KILLS,
+                           MEMORY_POOL_BYTES, MEMORY_POOL_QUERIES)
 
 
 def parse_data_size(value: str) -> int:
@@ -70,9 +70,19 @@ class ClusterMemoryPool:
         self.name = name
         self.max_bytes = int(max_bytes)
         self._lock = threading.Lock()
-        # qid -> (high-water bytes, group full name): the executor's
-        # capacity estimates, the one source on a single node
-        self._reservations: Dict[str, Tuple[int, str]] = {}
+        # qid -> ({source: bytes}, group full name). A query's
+        # reservation is the SUM of its per-source high-water marks:
+        # "coordinator" is the local executor's capacity estimates
+        # (the pre-PR-14 figure), and every worker TASK that streams
+        # live reservation beats (server/task_worker.py
+        # liveMemoryBytes) contributes its own source — the reference
+        # sums per-node task reservations the same way.
+        self._reservations: Dict[str, Tuple[Dict[str, int], str]] = {}
+        # running total maintained by source-level deltas: live-memory
+        # beats arrive per status poll (20Hz per running task), so the
+        # per-beat cost must not be a full-ledger re-sum under the
+        # same lock the executors' reserve() path contends for
+        self._total = 0
         MEMORY_POOL_BYTES.set(self.max_bytes, kind="total")
         MEMORY_POOL_BYTES.set(0, kind="reserved")
 
@@ -81,49 +91,84 @@ class ClusterMemoryPool:
         # gauges published under the lock: a preempted stale publish
         # would otherwise overwrite a newer total and persist on an
         # idle pool
-        total = sum(b for b, _ in self._reservations.values())
-        MEMORY_POOL_BYTES.set(total, kind="reserved")
+        MEMORY_POOL_BYTES.set(self._total, kind="reserved")
         MEMORY_POOL_QUERIES.set(len(self._reservations))
-        return total
+        return self._total
 
-    def set_reservation(self, qid: str, nbytes: int,
-                        group: str) -> Tuple[int, int]:
-        """Record ``qid``'s high-water reservation; returns (the
-        query's reservation, the pool total)."""
+    def set_reservation(self, qid: str, nbytes: int, group: str,
+                        source: str = "coordinator"
+                        ) -> Tuple[int, int]:
+        """Record ``qid``'s high-water reservation for one source;
+        returns (the query's current total reservation, the pool
+        total) so the caller never re-scans the ledger on the
+        per-allocation hot path."""
         with self._lock:
-            prev = self._reservations.get(qid, (0, group))[0]
-            mine = max(prev, int(nbytes))
-            self._reservations[qid] = (mine, group)
+            entry = self._reservations.get(qid)
+            if entry is None:
+                entry = ({}, group)
+                self._reservations[qid] = entry
+            srcs = entry[0]     # mutated in place: only ever read
+            #                     under this same lock
+            prev = srcs.get(source, 0)
+            if int(nbytes) > prev:
+                srcs[source] = int(nbytes)
+                self._total += int(nbytes) - prev
+            mine = sum(srcs.values())
             total = self._publish_locked()
         return mine, total
 
+    def clear_source(self, qid: str, source: str) -> None:
+        """Drop one source's reservation (a worker task/attempt
+        reached a terminal state: its memory is free on the worker,
+        so the pool must stop charging the query for it — otherwise
+        retried attempts and sequential stage tasks ACCUMULATE dead
+        high-water marks until the killer fires on a query that never
+        held that much at once). The coordinator source stays
+        monotonic, exactly as before."""
+        with self._lock:
+            entry = self._reservations.get(qid)
+            if entry is None:
+                return
+            self._total -= entry[0].pop(source, 0)
+            self._publish_locked()
+
     def free(self, qid: str) -> None:
         with self._lock:
-            self._reservations.pop(qid, None)
+            entry = self._reservations.pop(qid, None)
+            if entry is not None:
+                self._total -= sum(entry[0].values())
             self._publish_locked()
 
     def reserved_bytes(self, group: Optional[str] = None) -> int:
         with self._lock:
-            return sum(b for b, g in self._reservations.values()
+            return sum(sum(srcs.values())
+                       for srcs, g in self._reservations.values()
                        if group is None or g == group)
 
     def queries(self, group: Optional[str] = None
                 ) -> List[Tuple[str, int, str]]:
         """(qid, bytes, group) snapshots, largest first."""
         with self._lock:
-            items = [(q, b, g) for q, (b, g) in self._reservations.items()
+            items = [(q, sum(srcs.values()), g) for q, (srcs, g)
+                     in self._reservations.items()
                      if group is None or g == group]
         return sorted(items, key=lambda t: -t[1])
 
     def info(self) -> dict:
         """system.runtime / /v1/cluster-shaped pool state."""
-        items = self.queries()
-        total = sum(b for _, b, _ in items)
+        with self._lock:
+            items = sorted(
+                ((q, sum(srcs.values()), g,
+                  sum(1 for s in srcs if s != "coordinator"))
+                 for q, (srcs, g) in self._reservations.items()),
+                key=lambda t: -t[1])
+            total = sum(b for _, b, _, _ in items)
         return {"pool": self.name, "maxBytes": self.max_bytes,
                 "reservedBytes": total,
                 "freeBytes": max(0, self.max_bytes - total),
                 "queries": [{"queryId": q, "reservedBytes": b,
-                             "group": g} for q, b, g in items]}
+                             "group": g, "workerSources": ws}
+                            for q, b, g, ws in items]}
 
     def describe(self, group: Optional[str] = None) -> str:
         """Human-readable pool state for kill messages — the operator
@@ -198,8 +243,51 @@ class ClusterMemoryManager:
         if self.pool.max_bytes > 0 and total > self.pool.max_bytes:
             self._kill_largest(None, self.pool.max_bytes, caller=qid)
 
+    def reserve_remote(self, qid: str, source: str,
+                       nbytes: int) -> None:
+        """Fold a WORKER task's live reservation beat into the ledger
+        and enforce. Unlike ``reserve`` this never raises: the calling
+        thread is a status-poll/page-pull thread, not the governed
+        query's executor — every verdict lands through the victim's
+        kill callback (whose cancel event propagates to worker tasks
+        as a DELETE). This is the live half of the low-memory killer:
+        a query ballooning ON a worker is judged by the bytes it
+        actually holds there, DURING execution, not by coordinator
+        estimates or completion-time peaks."""
+        kill_fn = None
+        with self._lock:
+            entry = self._queries.get(qid)
+            if entry is None:
+                return                   # finished/killed: stale beat
+            _, group, group_limit, query_limit = entry
+            mine, total = self.pool.set_reservation(
+                qid, nbytes, group, source=source)
+            if query_limit > 0 and mine > query_limit:
+                # the per-query cap breach is the query's own fault:
+                # retire it under the lock (registry + ledger in one
+                # step, like _kill_largest) and kill it outside
+                kill_fn = entry[0]
+                self._queries.pop(qid, None)
+                self.kills += 1
+                self.pool.free(qid)
+                msg = (f"Query {qid} exceeded the global memory limit "
+                       f"of {query_limit} bytes (live worker "
+                       f"reservations reached {mine} bytes; "
+                       f"{self.pool.describe(group)})")
+        LIVE_MEMORY_BEATS.inc()
+        if kill_fn is not None:
+            MEMORY_KILLS.inc()
+            kill_fn(msg, "EXCEEDED_GLOBAL_MEMORY_LIMIT")
+            return
+        self._relieve_cache_pressure(total)
+        if group_limit > 0 \
+                and self.pool.reserved_bytes(group) > group_limit:
+            self._kill_largest(group, group_limit, caller=None)
+        if self.pool.max_bytes > 0 and total > self.pool.max_bytes:
+            self._kill_largest(None, self.pool.max_bytes, caller=None)
+
     def _relieve_cache_pressure(self, reserved_total: int) -> None:
-        """Cross-query cache governance: the shared scan and result
+        """Cross-query cache governance: the shared scan and replicate
         caches occupy the same memory the pool budgets, so when
         reservations + cache residency exceed the pool, evict cache
         entries FIRST — a cache full of one query's tables
@@ -219,12 +307,15 @@ class ClusterMemoryManager:
             pass            # enforcement below never depends on it
 
     def _kill_largest(self, group: Optional[str], limit: int,
-                      caller: str) -> None:
+                      caller: Optional[str]) -> None:
         """LowMemoryKiller: cancel the single largest registered query
         in the offending scope. The victim's kill callback fails it
         with CLUSTER_OUT_OF_MEMORY naming the victim and the pool
         state; if the victim IS the caller, raise instead so the
-        error surfaces on its own executor thread immediately."""
+        error surfaces on its own executor thread immediately.
+        ``caller=None`` (remote live-beat feeds) always uses the kill
+        callback — the feeding thread is never the victim's own
+        executor."""
         victim = kill_fn = None
         vbytes = 0
         with self._lock:
@@ -256,7 +347,7 @@ class ClusterMemoryManager:
             self.kills += 1
             self.pool.free(victim)
         MEMORY_KILLS.inc()
-        if victim == caller:
+        if caller is not None and victim == caller:
             raise MemoryGovernanceError(msg, "CLUSTER_OUT_OF_MEMORY")
         kill_fn(msg, "CLUSTER_OUT_OF_MEMORY")
 
@@ -279,6 +370,19 @@ class QueryMemoryContext:
 
     def reserve(self, nbytes: int) -> None:
         self._manager.reserve(self.query_id, nbytes)
+
+    def reserve_remote(self, source: str, nbytes: int) -> None:
+        """Fold a worker task's live reservation beat into the pool
+        (never raises — verdicts land through the kill callback). The
+        remote/stage schedulers feed this from task-status polls."""
+        self._manager.reserve_remote(self.query_id, source, nbytes)
+
+    def release_remote(self, source: str) -> None:
+        """Drop one task attempt's live reservation (the attempt is
+        terminal: its memory is free on the worker). Called by the
+        schedulers when an attempt completes or fails, so retries and
+        sequential stages never accumulate dead high-water marks."""
+        self._manager.pool.clear_source(self.query_id, source)
 
     def budget_bytes(self) -> Optional[int]:
         """The tightest byte budget governing this query (its own
