@@ -199,10 +199,9 @@ def test_build_catalogs_from_etc(tmp_path):
     assert LocalQueryRunner(catalogs=mgr, device="cpu").execute(sql).rows \
         == [[5]] == TpuRunner(catalogs=tpu_build(str(tmp_path))) \
         .execute(sql).rows
-    # with no catalog files: the default set, the JAX one's minus the
-    # stream catalog (ROADMAP 11b)
+    # with no catalog files: the default set, the JAX one's
     assert sorted(build_catalogs(None, device="cpu").list_catalogs()) == \
-        sorted(c for c in tpu_build(None).list_catalogs() if c != "stream")
+        sorted(tpu_build(None).list_catalogs())
 
 
 def test_coordinator_from_etc_settings(tmp_path):

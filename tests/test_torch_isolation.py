@@ -244,3 +244,69 @@ def test_the_worker_slice_modules_are_covered():
               "trino_tpu_torch.server.task_worker",
               "trino_tpu_torch.server.diagnostics"):
         assert m in MODULES
+
+
+def test_the_streaming_otlp_and_lint_modules_are_covered():
+    """The streaming slice, the OTLP exporter and the source lint are
+    the port's own copies, and the checks above reach them."""
+    for m in ("trino_tpu_torch.streaming.log",
+              "trino_tpu_torch.streaming.offsets",
+              "trino_tpu_torch.streaming.continuous",
+              "trino_tpu_torch.connectors.stream",
+              "trino_tpu_torch.obs.otlp",
+              "trino_tpu_torch.analysis.lint"):
+        assert m in MODULES
+    assert (PKG / "streaming" / "__init__.py").exists()
+
+
+def test_a_stream_scan_continuous_job_and_otlp_export_load_no_jax():
+    """A stream topic scanned through SQL, a continuous insert job that
+    drains it, an OTLP export to a file sink and a lint run: still no
+    jax and no trino_tpu module in the process."""
+    code = (
+        "import json, sys, tempfile, threading, time\n"
+        "d = tempfile.TemporaryDirectory()\n"
+        "from trino_tpu_torch.config import CONFIG\n"
+        "CONFIG.stream_dir = d.name + '/stream'\n"
+        "CONFIG.otlp_file = d.name + '/otlp.jsonl'\n"
+        "from trino_tpu_torch.runner import LocalQueryRunner\n"
+        "from trino_tpu_torch.fte.spool import make_spool\n"
+        "from trino_tpu_torch.streaming import get_log, OffsetStore\n"
+        "from trino_tpu_torch.streaming.continuous import "
+        "ContinuousQueryManager\n"
+        "from trino_tpu_torch.analysis.lint import lint_source\n"
+        "r = LocalQueryRunner(device='cpu', collect_node_stats=True)\n"
+        "r.execute('CREATE TABLE stream.default.e (k BIGINT, v DOUBLE)')\n"
+        "r.execute('CREATE TABLE memory.default.s (k BIGINT, v DOUBLE)')\n"
+        "get_log().append('e', [json.dumps({'k': i, 'v': i / 2})"
+        ".encode() for i in range(10)])\n"
+        "assert r.execute('SELECT count(*) FROM stream.default.e')"
+        ".rows == [[10]]\n"
+        "lock = threading.Lock()\n"
+        "def run(sql):\n"
+        "    with lock:\n"
+        "        return r.execute(sql)\n"
+        "m = ContinuousQueryManager(run, r.catalogs, OffsetStore("
+        "make_spool('local', local_base_dir=d.name + '/spool')), "
+        "device='cpu')\n"
+        "m.create({'kind': 'insert', 'topic': 'e', 'poll_interval_ms': 50,"
+        " 'sql': 'INSERT INTO memory.default.s SELECT k, v FROM "
+        "stream.default.e'})\n"
+        "deadline = time.time() + 60\n"
+        "while run('SELECT count(*) FROM memory.default.s').rows != [[10]]:"
+        "\n"
+        "    assert time.time() < deadline\n"
+        "    time.sleep(0.05)\n"
+        "m.stop()\n"
+        "assert open(CONFIG.otlp_file).readline().startswith("
+        "'{\"resourceSpans\"')\n"
+        "lint_source('x = 1\\n')\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
+        "             or m.startswith(('jax.', 'jaxlib'))\n"
+        "             or m == 'trino_tpu' or m.startswith('trino_tpu.'))\n"
+        "d.cleanup()\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=str(PKG.parent), timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"

@@ -586,11 +586,13 @@ def test_builtin_factories_build_on_the_named_device(tmp_path):
                         ("tpcds", {}), ("memory", {}), ("blackhole", {}),
                         ("system", {}),
                         ("localfile", {"localfile.root": str(tmp_path)}),
-                        ("jdbc", {})):
+                        ("jdbc", {}),
+                        ("stream", {"stream.dir": str(tmp_path / "s")})):
         conn = plugin.create_connector(kind, kind, props, device=CPU)
         assert conn.device.type == "cpu", kind
     assert plugin.create_connector(
         "tpch", "x", {"tpch.rows-per-split": "4096"},
         device=CPU).rows_per_split == 4096
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        plugin.create_connector("stream", "s", {}, device=CPU)
+    assert plugin.create_connector(
+        "stream", "s", {"stream.dir": str(tmp_path / "s")},
+        device=CPU).log.base_dir == str(tmp_path / "s")

@@ -151,14 +151,16 @@ def test_http_status_of_unknown_routes_and_auth(pair):
 
 
 def test_not_yet_ported_routes_answer_501(pair):
-    _, tco = pair
-    for method, path in (("GET", "/v1/hotshapes"),
-                         ("GET", "/v1/continuous"),
-                         ("POST", "/v1/ingest/clicks"),
-                         ("GET", "/v1/trace/q1")):
-        status, body = http(method, tco.base_uri + path,
-                            b"{}" if method == "POST" else None)
-        assert status == 501 and "not yet ported" in body["error"]
+    """Only the hot-shape feed is left unported; the streaming and OTLP
+    routes answer as the JAX coordinator's do."""
+    jco, tco = pair
+    status, body = http("GET", tco.base_uri + "/v1/hotshapes")
+    assert status == 501 and "not yet ported" in body["error"]
+    for path in ("/v1/continuous/cq_none", "/v1/trace/q1"):
+        got = http("GET", tco.base_uri + path)
+        assert got == http("GET", jco.base_uri + path) and got[0] == 404
+    status, body = http("GET", tco.base_uri + "/v1/continuous")
+    assert status == 200 and isinstance(body["jobs"], list)
 
 
 # ---- session properties ------------------------------------------------------

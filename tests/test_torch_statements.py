@@ -451,12 +451,12 @@ def test_script_matches_the_jax_engine(name):
 
 
 def test_show_catalogs_lacks_only_stream():
-    """The port registers every catalog of the JAX runner but ``stream``,
-    which waits for its connector (ROADMAP A8)."""
+    """The port registers every catalog of the JAX runner, ``stream``
+    included now that its connector is ported."""
     want = TpuRunner().execute("SHOW CATALOGS").rows
     got = LocalQueryRunner(device="cpu").execute("SHOW CATALOGS").rows
-    assert [c for c in want if c != ["stream"]] == got
-    assert ["stream"] in want
+    assert want == got
+    assert ["stream"] in got
 
 
 def test_explain_analyze_is_not_yet_ported():

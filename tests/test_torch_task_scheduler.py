@@ -19,6 +19,7 @@ reservations — its worker task actually DELETEd — while a concurrent
 small query completes.
 """
 
+import sys
 import threading
 import time
 
@@ -559,6 +560,81 @@ def test_replicate_fetch_once_cache_unit(tmp_path):
     # pressure governance clears it
     assert evict_replicate_cache(None) == len(frame)
     assert replicate_cache_bytes() == 0
+
+
+def test_replicate_cache_single_flight(monkeypatch):
+    """Eight consumer tasks reading one replicate key at once: one pull,
+    seven hits, the same bytes for all; a failed pull caches nothing and
+    its waiters pull for themselves."""
+    from trino_tpu_torch.columnar import batch_from_pylist
+    from trino_tpu_torch.serde import serialize_batch
+    from trino_tpu_torch.stage import exchange
+    from trino_tpu_torch.types import BIGINT
+    exchange.evict_replicate_cache(None)
+    frame = serialize_batch(batch_from_pylist(
+        {"x": [4, 5, 6]}, {"x": BIGINT}, device="cpu"))
+    pulls = []
+    fail = [False]
+
+    def stub(self, key, uri, index=None, candidates=None, eager=False):
+        pulls.append(key)
+        time.sleep(0.2)
+        if fail[0]:
+            raise RuntimeError("producer lost")
+        return frame
+
+    monkeypatch.setattr(exchange.ExchangePuller, "pull_frame", stub)
+    sources = {"0": {"tasks": ["sf.s0.p0"], "uris": [None],
+                     "kind": "replicate", "candidates": [],
+                     "eager": False}}
+    n = 8
+    barrier = threading.Barrier(n)
+    out, errors = [None] * n, []
+
+    def consumer(i):
+        barrier.wait()
+        try:
+            out[i] = exchange.ExchangePuller(
+                sources, part=i, device="cpu").read_fragment(0)
+        except Exception as e:      # noqa: BLE001
+            errors.append(e)
+
+    def run_all():
+        threads = [threading.Thread(target=consumer, args=(i,))
+                   for i in range(n)]
+        old = sys.getswitchinterval()
+        sys.setswitchinterval(1e-6)
+        try:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(30)
+        finally:
+            sys.setswitchinterval(old)
+        assert not any(t.is_alive() for t in threads)
+
+    hits0 = _counter("trino_tpu_exchange_replicate_cache_total",
+                     result="hit")
+    miss0 = _counter("trino_tpu_exchange_replicate_cache_total",
+                     result="miss")
+    run_all()
+    assert not errors
+    assert pulls == ["sf.s0.p0"]
+    assert _counter("trino_tpu_exchange_replicate_cache_total",
+                    result="hit") == hits0 + 7
+    assert _counter("trino_tpu_exchange_replicate_cache_total",
+                    result="miss") == miss0 + 1
+    assert all(o[0].to_pylist() == [[4], [5], [6]] for o in out)
+    assert exchange.replicate_cache_bytes() == len(frame)
+    # a failing pull is never cached: every reader ends up pulling
+    exchange.evict_replicate_cache(None)
+    pulls.clear()
+    fail[0] = True
+    barrier = threading.Barrier(n)
+    run_all()
+    assert len(errors) == n and len(pulls) == n
+    assert exchange.replicate_cache_bytes() == 0
+    assert not exchange._REPL_INFLIGHT
 
 
 def test_replicate_cache_e2e_semi_join():

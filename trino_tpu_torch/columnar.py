@@ -312,13 +312,30 @@ class Column:
         return self.valid
 
 
+# the python type of a numeric or boolean lane's own values
+LANE_PY_TYPE = {"bigint": int, "integer": int, "smallint": int,
+                "tinyint": int, "double": float, "real": float,
+                "boolean": bool}
+
+
 def _to_lane(values, typ: Type):
     """numpy-ify a python sequence for a non-string column; returns
     (data, valid|None, data2|None). ``data2`` is the Int128 high lane,
-    present only for DECIMAL(p>18) and TIMESTAMP WITH TIME ZONE."""
+    present only for DECIMAL(p>18) and TIMESTAMP WITH TIME ZONE. A
+    numeric or boolean lane whose values are all None or of its own
+    python type is built by numpy in one call (the loop's values)."""
     dt = typ.np_dtype
     if dt is None:
         raise NotImplementedError(f"not yet ported: columns of type {typ}")
+    py = LANE_PY_TYPE.get(typ.name)
+    if py is not None:
+        kinds = set(map(type, values))
+        if kinds <= {py, type(None)}:
+            if type(None) not in kinds:
+                return np.array(values, dtype=dt), None, None
+            valid = np.array([v is not None for v in values], dtype=bool)
+            return (np.array([0 if v is None else v for v in values],
+                             dtype=dt), valid, None)
     n = len(values)
     data = np.zeros(n, dtype=dt)
     valid = np.ones(n, dtype=bool)

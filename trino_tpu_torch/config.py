@@ -70,8 +70,37 @@ class EngineConfig:
     prewarm_top_k: int = 8
     stream_chunk_rows: int = 0
     ragged_batch_rows: int = 1 << 16
-    stream_poll_interval_ms: int = 500
-    stream_lateness_ms: int = 1000
+    # process-wide default for the stream_poll_interval_ms session
+    # property: the cadence at which continuous queries re-dispatch
+    # their incremental plan (streaming/continuous.py)
+    stream_poll_interval_ms: int = _env_int(
+        "TRINO_TPU_STREAM_POLL_MS", 500)
+    # default allowed event-time lateness (ms) for watermarked
+    # windowed continuous queries: watermark = max(ts) - lateness
+    stream_lateness_ms: int = _env_int(
+        "TRINO_TPU_STREAM_LATENESS_MS", 1000)
+    # streaming ingestion (streaming/): durable segment files of the
+    # append-only message log. A sibling of the spool dir, never inside
+    # it, so the spool's TTL sweep cannot reap live topics; uid-scoped
+    # like spool_dir (ingested messages transit here).
+    stream_dir: str = os.environ.get(
+        "TRINO_TPU_STREAM_DIR",
+        os.path.join(tempfile.gettempdir(),
+                     f"trino_tpu_stream_{getattr(os, 'getuid', int)()}"))
+    # default partition count of implicitly-created topics (CREATE
+    # TABLE stream.default.t / first ingest into an unknown topic)
+    stream_partitions: int = _env_int("TRINO_TPU_STREAM_PARTITIONS", 2)
+    # fsync segment appends: the log survives process kills either way
+    # (one O_APPEND write a batch); fsync also survives power loss at a
+    # per-append cost
+    stream_fsync: bool = os.environ.get("TRINO_TPU_STREAM_FSYNC",
+                                        "0") == "1"
+    # OTLP trace export sinks (obs/otlp.py): a JSONL file path and/or
+    # an OTLP/HTTP collector endpoint. Empty = export off; the
+    # coordinator's GET /v1/trace/{query_id} works either way.
+    # Per-query opt-out: SET SESSION otlp_export = false.
+    otlp_file: str = os.environ.get("TRINO_TPU_OTLP_FILE", "")
+    otlp_endpoint: str = os.environ.get("TRINO_TPU_OTLP_ENDPOINT", "")
 
     # The coordinator's services (server/, fte/, obs/history.py,
     # exec/learnedstats.py, exec/resultcache.py), under the JAX

@@ -1369,6 +1369,13 @@ class DistributedHostQueryRunner:
             # finally for the same reason: failed/timed-out queries
             # must not vanish from the SLO dashboards
             QUERY_WALL_SECONDS.observe(_time.perf_counter() - t0)
+            # OTLP export (obs/otlp.py): the finished distributed
+            # trace, worker spans included with their ids, leaves
+            # through the configured sinks; in the finally so failed
+            # queries' traces export too
+            if trace is not None and trace.roots:
+                from ..obs.otlp import maybe_export
+                maybe_export(trace, session=self.session)
         if collect:
             # sched.peak_memory_bytes is only populated when worker
             # stats were fetched; a non-stats query must not clobber

@@ -35,6 +35,14 @@ import torch
 
 from ..columnar import Batch, Column
 from ..config import CONFIG
+from ..obs.metrics import METRICS
+
+# the same lookups on the process registry (/metrics), under the JAX
+# engine's family; a bypass counts as result "bypass"
+_M_SCAN = METRICS.counter(
+    "trino_tpu_scan_cache_total",
+    "HBM-resident scan cache lookups by granularity and outcome",
+    ("cache", "result"))
 
 _SCAN_CACHES: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 _SCAN_CACHE_LOCK = threading.Lock()
@@ -128,6 +136,7 @@ def read_split_cached(conn, split, columns) -> Batch:
     if not _scan_fits(conn, h, len(columns)):
         with _SCAN_CACHE_LOCK:
             STATS["split_bypass"] += 1
+        _M_SCAN.inc(cache="split", result="bypass")
         return conn.read_split(split, columns)
     skey = (h.schema, h.table, split.part, split.part_count,
             h.constraint, h.limit)
@@ -136,6 +145,7 @@ def read_split_cached(conn, split, columns) -> Batch:
         hit = _lookup(state, skey, columns)
         missing = _missing(state, skey, columns)
         STATS["split_hit" if hit is not None else "split_miss"] += 1
+    _M_SCAN.inc(cache="split", result="miss" if hit is None else "hit")
     if hit is not None:
         return hit
     raw = conn.read_split(split, missing)
@@ -217,6 +227,7 @@ def read_table_cached(conn, handle, columns, par,
         hit = _lookup(state, wkey, columns)
         missing = _missing(state, wkey, columns)
         STATS["table_hit" if hit is not None else "table_miss"] += 1
+    _M_SCAN.inc(cache="table", result="miss" if hit is None else "hit")
     if hit is not None:
         return hit
     # an over-budget table is never materialised just to find out that

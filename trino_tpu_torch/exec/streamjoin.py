@@ -272,7 +272,7 @@ class ChunkCopier:
 
     def release(self) -> None:
         """Drop the pinned sources whose copies have completed."""
-        self.in_flight = [(h, e) for h, e in self.in_flight
+        self.in_flight = [(h, e) for h, e in self.in_flight  # tt-lint: ignore[race-attr-write] a staging instance belongs to one chunk loop on one thread; the thread edge is a name match of other release() methods
                           if not e.query()]
 
 

@@ -214,7 +214,7 @@ class TaskHandle:
         finally:
             # CPU accounting restarts at the grant: time burned off-CPU
             # waiting for the slot must not charge the next quantum
-            self._cpu_since = time.thread_time()
+            self._cpu_since = time.thread_time()  # tt-lint: ignore[race-attr-write] owning-task-thread-private: every _cpu_since reader/writer runs on the handle's own thread (thread_time is per-thread by definition)
 
 
 class _BlockedScope:

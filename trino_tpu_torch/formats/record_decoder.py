@@ -4,7 +4,8 @@ Counterpart of ``trino_tpu/formats/record_decoder.py``, with the same
 decoders and the same lenient rules; the decoded batch lands on the
 decoder's device (cuda unless it was built with ``device="cpu"``).
 Column-at-a-time: each field extracts across ALL messages into a lane,
-then the batch assembles once.
+then the batch assembles once (the JSON decoder's cost is the host's,
+one ``json.loads`` a message).
 
 Decoders: ``json`` (mapping = dot path into the document), ``csv``
 (mapping = field index), ``raw`` (whole message as varchar).
@@ -16,9 +17,10 @@ import csv as _csv
 import io
 import json as _json
 from dataclasses import dataclass
+from itertools import repeat
 from typing import Dict, Optional, Sequence
 
-from ..columnar import Batch, batch_from_pylist
+from ..columnar import LANE_PY_TYPE, Batch, batch_from_pylist
 from ..config import DeviceLike, resolve_device
 from ..types import Type, is_string
 
@@ -88,18 +90,37 @@ class JsonRowDecoder(RowDecoder):
         for m in messages:
             try:
                 docs.append(_json.loads(m))
-            except (ValueError, UnicodeDecodeError):
+            except ValueError:  # a JSONDecodeError or UnicodeDecodeError
                 docs.append(None)
+        all_dicts = all(type(d) is dict for d in docs)
         data: Dict[str, list] = {}
         for f in self.fields:
-            path = f.mapping or f.name
-            data[f.name] = [
-                None if d is None else _coerce(_json_path(d, path),
-                                               f.type)
-                for d in docs]
+            data[f.name] = _coerce_all(
+                _extract(docs, f.mapping or f.name, all_dicts), f.type)
         return batch_from_pylist(data,
                                  {f.name: f.type for f in self.fields},
                                  self.device)
+
+
+def _extract(docs: list, path: str, all_dicts: bool = False) -> list:
+    """``_json_path`` of every document; a one-segment path reads a dict
+    document's key directly (the same value, without the walk)."""
+    if "/" in path or "." in path:
+        return [None if d is None else _json_path(d, path) for d in docs]
+    if all_dicts:
+        return list(map(dict.get, docs, repeat(path)))
+    return [d.get(path) if type(d) is dict
+            else None if d is None else _json_path(d, path)
+            for d in docs]
+
+
+def _coerce_all(values: list, t: Type) -> list:
+    """``_coerce`` of every value; values of the lane's own python type
+    pass as they are (which is what ``_coerce`` returns for them)."""
+    native = str if is_string(t) else LANE_PY_TYPE.get(t.name)
+    if native is None:
+        return [_coerce(v, t) for v in values]
+    return [v if type(v) is native else _coerce(v, t) for v in values]
 
 
 class CsvRowDecoder(RowDecoder):

@@ -1,9 +1,12 @@
 """Deterministic fault-point injection for chaos testing.
 
 Counterpart of ``trino_tpu/fte/faultpoints.py`` (host only). Named
-crash sites (``spool.pre_marker`` in the spool's commit protocol, and
-the dispatch and worker sites that come with the worker slice) are
-single calls to :func:`fault_point`, free when no schedule is armed.
+crash sites (``spool.pre_marker`` in the spool's commit protocol, the
+dispatch and worker sites, and the streaming ingest path:
+``stream.pre_append``, a producer dying before its frame lands, and
+``stream.pre_offset_commit``, a consumer dying between a successful
+incremental INSERT and sealing its offset epoch) are single calls to
+:func:`fault_point`, free when no schedule is armed.
 
 A schedule maps a site name to an action: ``crash`` (``os._exit``, a
 SIGKILL'd process), ``raise`` (:class:`FaultInjected`), ``delay`` (sleep

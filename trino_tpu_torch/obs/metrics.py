@@ -422,6 +422,40 @@ TASK_SCHED_LEVEL_SECONDS = METRICS.counter(
     "by multilevel-feedback level at grant time", ("level",))
 
 
+OTLP_EXPORTS = METRICS.counter(
+    "trino_tpu_otlp_exports_total",
+    "OTLP trace-export attempts by sink and outcome (obs/otlp.py "
+    "file/HTTP sinks)", ("sink", "result"))
+
+# streaming ingestion + continuous queries (streaming/ +
+# connectors/stream.py): producers POST /v1/ingest/{topic} on the
+# coordinator or any worker, offset commits seal each continuous
+# cycle, and the job scheduler re-dispatches incremental plans on a
+# cadence. Registered here — the producers span the message log, both
+# HTTP server modules and the continuous-query manager — so scrapes
+# read one family identity regardless of import order.
+INGEST_ROWS = METRICS.counter(
+    "trino_tpu_ingest_rows_total",
+    "Messages appended to the streaming message log, by topic",
+    ("topic",))
+INGEST_BYTES = METRICS.counter(
+    "trino_tpu_ingest_bytes_total",
+    "Message payload bytes appended to the streaming message log, "
+    "by topic", ("topic",))
+OFFSET_COMMITS = METRICS.counter(
+    "trino_tpu_stream_offset_commits_total",
+    "Consumer offset epochs committed to the spool-backed offset "
+    "store, by outcome (committed = this process sealed the epoch, "
+    "superseded = an earlier commit already won)", ("outcome",))
+CONTINUOUS_CYCLES = METRICS.counter(
+    "trino_tpu_continuous_cycles_total",
+    "Continuous-query scheduler cycles, by outcome (advanced = new "
+    "offsets committed, idle = no new messages, failed)", ("outcome",))
+CONTINUOUS_JOBS = METRICS.gauge(
+    "trino_tpu_continuous_queries",
+    "Continuous-query jobs currently RUNNING on this coordinator")
+
+
 def write_exposition(handler) -> None:
     """Serve METRICS as a Prometheus text response on a
     BaseHTTPRequestHandler — the one /metrics implementation shared by

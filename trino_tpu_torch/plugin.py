@@ -131,7 +131,8 @@ def _ensure_builtins() -> None:
         "system", lambda n, p, device: SystemConnector(device=device)))
 
     def _stream(n, p, device):
-        raise NotImplementedError("not yet ported: the stream connector")
+        from .connectors.stream import StreamConnector
+        return StreamConnector(p.get("stream.dir"), device=device)
     register_factory(ConnectorFactory("stream", _stream))
 
     def _localfile(n, p, device):

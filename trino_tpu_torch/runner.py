@@ -45,6 +45,7 @@ from .catalog import (CatalogManager, ColumnMetadata, TableHandle,
 from .columnar import Batch, Column, empty_batch
 from .config import DeviceLike, resolve_device
 from .connectors.memory import BlackholeConnector, MemoryConnector
+from .connectors.stream import StreamConnector
 from .connectors.system import SystemConnector
 from .connectors.tpcds import TpcdsConnector
 from .connectors.tpch import TpchConnector
@@ -134,6 +135,9 @@ class LocalQueryRunner:
             self.catalogs.register("memory", MemoryConnector(device=dev))
             self.catalogs.register("blackhole", BlackholeConnector(device=dev))
             self.catalogs.register("system", SystemConnector(device=dev))
+            # disk-backed (CONFIG.stream_dir), so unlike memory this
+            # default shares its state with worker processes
+            self.catalogs.register("stream", StreamConnector(device=dev))
         self.session = session or Session(catalog="tpch", schema="tiny")
         # engine transaction state: each catalog's snapshot, taken at
         # START TRANSACTION and restored by ROLLBACK
@@ -178,6 +182,11 @@ class LocalQueryRunner:
             if owned_deadline:
                 session.deadline = None
             QUERY_WALL_SECONDS.observe(time.perf_counter() - t0)
+            # OTLP export (obs/otlp.py): best-effort, sink-configured;
+            # in the finally so failed queries' traces export too
+            if trace is not None and trace.roots:
+                from .obs.otlp import maybe_export
+                maybe_export(trace, session=session)
         result.query_id = qid
         result.wall_s = time.perf_counter() - t0
         if trace is not None:

@@ -20,9 +20,13 @@ and resumes a RUNNING query whose first coordinator died from its
 spooled execution manifest (``resume_query``, fte/recovery.py).
 ``leak_report`` is server/diagnostics.py.
 
+Streaming (streaming/): producers POST /v1/ingest/{topic}, and
+/v1/continuous creates, lists, reads and cancels continuous jobs whose
+cycles are tracked queries; /v1/trace/{id} serves a finished query's
+trace as OTLP/JSON (obs/otlp.py).
+
 Not yet ported (each raises or answers HTTP 501 with that message):
-the mesh (``distributed=True``), /v1/hotshapes, streaming
-(/v1/continuous, /v1/ingest) and the OTLP view of /v1/trace/{id}.
+the mesh (``distributed=True``) and /v1/hotshapes.
 """
 
 from __future__ import annotations
@@ -117,7 +121,7 @@ class _Query:
             return
         # the executor polls this event between plan nodes, so cancel
         # actually interrupts execution rather than just flipping state
-        self.session.cancel = self._cancel
+        self.session.cancel = self._cancel  # tt-lint: ignore[race-attr-write] run-thread setup; only this thread's executor reads session.cancel
         try:
             runner = runner_factory(self.session)
             result = runner.execute(self.sql)
@@ -134,7 +138,7 @@ class _Query:
                 except Exception:        # noqa: BLE001 — best-effort
                     pass
             if self._transition("FINISHED"):
-                self.result = result
+                self.result = result  # tt-lint: ignore[race-attr-write] sole writer (transition winner); readers tolerate the pre-publication None (query_results re-polls)
             elif persisted and on_discard is not None:
                 # cancel raced the persist between the state check and
                 # the transition: the query ends CANCELED, so the
@@ -148,7 +152,7 @@ class _Query:
                 return
             from ..errors import classify
             ename, ecode, etype = classify(e)
-            self.error = {
+            self.error = {  # tt-lint: ignore[race-attr-write] sole writer (FAILED-transition winner); readers see None until _done gates them
                 "message": str(e),
                 "errorCode": ecode,
                 "errorName": ename,
@@ -159,7 +163,7 @@ class _Query:
             }
         finally:
             if self.ended is None:
-                self.ended = time.time()
+                self.ended = time.time()  # tt-lint: ignore[race-attr-write] benign last-write with do_cancel's stamp; both are wall-clock end times
             self._done.set()
 
     def _retire_deadline_timer(self):
@@ -175,7 +179,7 @@ class _Query:
         self._cancel.set()
         if self._transition("CANCELED"):
             if self.ended is None:
-                self.ended = time.time()
+                self.ended = time.time()  # tt-lint: ignore[race-attr-write] benign last-write with do_cancel's stamp; both are wall-clock end times
             self._done.set()
         self._retire_deadline_timer()
 
@@ -197,7 +201,7 @@ class _Query:
                           "errorName": error_name, "errorType": etype}
         self._cancel.set()
         if self.ended is None:
-            self.ended = time.time()
+            self.ended = time.time()  # tt-lint: ignore[race-attr-write] benign last-write with do_cancel's stamp; both are wall-clock end times
         self._done.set()
         self._retire_deadline_timer()
         return True
@@ -735,6 +739,28 @@ class Coordinator:
                                     memory=self.memory,
                                     manifest_store=self.manifests,
                                     history_sink=self._on_query_terminal)
+        # streaming ingestion and continuous queries (streaming/): the
+        # process-wide message log backs POST /v1/ingest/{topic} and the
+        # stream catalog's scans; the continuous-query manager drives
+        # long-lived jobs whose cycles are real tracked queries (source
+        # "continuous"). Consumer offsets spool under reserved fragment
+        # -3 on the server spool (or the process default for a
+        # workerless coordinator), and the job ledger lives next to the
+        # query history so a replacement coordinator restarts RUNNING
+        # jobs (start()).
+        from ..streaming.continuous import ContinuousQueryManager
+        from ..streaming.log import get_log
+        from ..streaming.offsets import OffsetStore
+        self.stream_log = get_log()
+        off_spool = self.spool
+        if off_spool is None:
+            from ..fte.spool import default_spool
+            off_spool = default_spool()
+        self.continuous = ContinuousQueryManager(
+            self._run_continuous_sql, self._catalogs,
+            OffsetStore(off_spool),
+            jobs_path=os.path.join(hist_dir, "continuous.jsonl"),
+            log=self.stream_log, device=self.device)
         self._register_metric_collectors()
         self._httpd = ThreadingHTTPServer(("127.0.0.1", port),
                                           _make_handler(self))
@@ -796,9 +822,14 @@ class Coordinator:
         self._thread.start()
         if self._start_detector:
             self.failure_detector.start()
+        # coordinator-failover restart of continuous jobs: replay the
+        # durable ledger; restarted consumers resume from their
+        # committed offset epochs
+        self.continuous.restart_jobs()
         return self
 
     def stop(self):
+        self.continuous.stop()
         METRICS.unregister_collector(self._metric_collector)
         try:
             # final learned-stats checkpoint: the throttled per-query
@@ -1283,9 +1314,24 @@ class Coordinator:
         return self.tracker.cancel(query_id)
 
     def continuous_query_infos(self) -> list:
-        """system.runtime.continuous_queries rows: none until streaming
-        is ported."""
-        return []
+        """system.runtime.continuous_queries rows."""
+        return self.continuous.infos()
+
+    # ---- continuous-query cycle driver --------------------------------
+    def _run_continuous_sql(self, sql: str):
+        """One continuous-query cycle = one real tracked query: it
+        rides admission, the stage DAG, retries, history and the
+        system.runtime.queries surface like any client submission."""
+        session = Session(catalog="stream", schema="default",
+                          user="continuous")
+        q = self.tracker.submit(sql, session, source="continuous")
+        if not q.wait_done(600.0):
+            self.tracker.cancel(q.query_id)
+            raise TimeoutError(f"continuous cycle timed out: {sql!r}")
+        if q.state != "FINISHED":
+            msg = (q.error or {}).get("message", f"query {q.state}")
+            raise RuntimeError(msg)
+        return q.result
 
     def leak_report(self, stuck_after_s: float = 3600.0,
                     orphan_grace_s: float = 5.0):
@@ -1540,12 +1586,31 @@ def _make_handler(co: Coordinator):
                 self._send(200, {"joined": joined,
                                  "workers": co.live_workers()})
                 return
+            # /v1/ingest/{topic}: newline-delimited messages into the
+            # append-only log (producers hit the coordinator or any
+            # worker: the segment files are the shared truth)
             parts = [p for p in path.split("/") if p]
             if len(parts) == 3 and parts[:2] == ["v1", "ingest"]:
-                self._not_ported("/v1/ingest (streaming)")
+                from urllib.parse import parse_qs
+                from ..streaming.log import ingest_http
+                n = int(self.headers.get("Content-Length", 0))
+                body = self.rfile.read(n)
+                try:
+                    self._send(200, ingest_http(
+                        co.stream_log, parts[2], body,
+                        parse_qs(urlparse(self.path).query)))
+                except ValueError as e:
+                    self._send(400, {"error": str(e)})
                 return
             if path == "/v1/continuous":
-                self._not_ported("/v1/continuous (streaming)")
+                n = int(self.headers.get("Content-Length", 0))
+                try:
+                    spec = json.loads(self.rfile.read(n) or b"{}")
+                    job = co.continuous.create(spec)
+                except (ValueError, KeyError) as e:
+                    self._send(400, {"error": str(e)})
+                    return
+                self._send(200, job)
                 return
             self._send(404, {"error": "not found"})
 
@@ -1622,17 +1687,39 @@ def _make_handler(co: Coordinator):
                     "entries": LEARNED_STATS.snapshot(),
                     "tracked": len(LEARNED_STATS)})
                 return
-            if path == "/v1/continuous" or (
-                    len(parts) == 3 and parts[:2] == ["v1", "continuous"]):
-                self._not_ported("/v1/continuous (streaming)")
+            if path == "/v1/continuous":
+                self._send(200, {"jobs": co.continuous_query_infos()})
+                return
+            if len(parts) == 3 and parts[:2] == ["v1", "continuous"]:
+                job = co.continuous.get(parts[2])
+                if job is None:
+                    self._send(404, {"error": "no such job"})
+                    return
+                self._send(200, job)
                 return
             if path == "/v1/trace":
                 # recent trace ids and root-span summaries
                 self._send(200, {"traces": co.trace_ring.list()})
                 return
             if len(parts) == 3 and parts[:2] == ["v1", "trace"]:
-                # one query's trace as OTLP/JSON (obs/otlp.py)
-                self._not_ported("/v1/trace/{query_id} (the OTLP export)")
+                # the finished query's distributed trace as OTLP/JSON
+                # (obs/otlp.py ResourceSpans shape): the pull surface of
+                # the export, worker spans under the query's trace id
+                # with their true parent span ids, no collector needed.
+                # 404 until the query has a trace (still running,
+                # untraced, or unknown id).
+                q = co.tracker.get(parts[2])
+                trace = (getattr(q.result, "trace", None)
+                         if q is not None and q.result is not None
+                         else None)
+                if trace is None or not trace.roots:
+                    self._send(404, {"error": "no trace for query"})
+                    return
+                from ..obs.otlp import trace_to_resource_spans
+                self._send(200, trace_to_resource_spans(
+                    trace, {"trino_tpu.query_id": q.query_id,
+                            "trino_tpu.state": q.state,
+                            "service.name": "trino_tpu-coordinator"}))
                 return
             if len(parts) == 3 and parts[:2] == ["v1", "query"]:
                 q = co.tracker.get(parts[2])
@@ -1684,7 +1771,10 @@ def _make_handler(co: Coordinator):
                                  "workers": co.live_workers()})
                 return
             if len(parts) == 3 and parts[:2] == ["v1", "continuous"]:
-                self._not_ported("/v1/continuous (streaming)")
+                if co.continuous.cancel(parts[2]):
+                    self._send(200, {"canceled": parts[2]})
+                else:
+                    self._send(404, {"error": "no such job"})
                 return
             if len(parts) >= 4 and parts[:2] == ["v1", "statement"]:
                 co.tracker.cancel(parts[3])

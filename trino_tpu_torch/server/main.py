@@ -41,8 +41,8 @@ def build_catalogs(etc_dir: Optional[str],
                    plugins: Optional[list] = None, device=None):
     """etc/catalog/*.properties -> CatalogManager through the plugin
     registry (connector.name selects the factory), each connector on
-    ``device``. Without catalog files: tpch, tpcds, memory and
-    blackhole."""
+    ``device``. Without catalog files: tpch, tpcds, memory, blackhole
+    and stream."""
     from .. import plugin
     from ..catalog import CatalogManager
     from ..config import resolve_device
@@ -67,7 +67,8 @@ def build_catalogs(etc_dir: Optional[str],
                       file=sys.stderr)
             made = True
     if not made:
-        for kind in ("tpch", "tpcds", "memory", "blackhole"):
+        for kind in ("tpch", "tpcds", "memory", "blackhole",
+                     "stream"):
             mgr.register(kind, plugin.create_connector(kind, kind,
                                                        device=dev))
     return mgr

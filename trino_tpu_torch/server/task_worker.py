@@ -11,13 +11,14 @@ frames (serde.py) that the coordinator pulls token by token
 partition frames on the card (stage/repartition.py) and commits them to
 the spool, which /v1/partition serves to consumers on other hosts.
 /v1/task/{id} answers the task's status (state, node stats, spans, live
-and peak memory), /metrics the worker's registry, /v1/info its liveness.
+and peak memory), /metrics the worker's registry, /v1/info its liveness;
+producers may POST /v1/ingest/{topic} to any worker (streaming/log.py).
 Each task's memory context counts the bytes its executor reserves and,
 on a card, the bytes the card holds beyond those it held when the task
 began; the status beats carry them to the coordinator's pool.
 
-Not yet ported (HTTP 501 or an error with that message): /v1/ingest
-(streaming) and the hot-shape pre-warm (``prewarm_from``).
+Not yet ported (an error with that message): the hot-shape pre-warm
+(``prewarm_from``).
 """
 
 from __future__ import annotations
@@ -290,7 +291,7 @@ class _Task:
                         self.task_id,
                         trace_id=ctx[0] if ctx else None,
                         parent_span_id=ctx[1] if ctx else None)
-                    self.trace_id = trace.trace_id
+                    self.trace_id = trace.trace_id  # tt-lint: ignore[race-attr-write] task-thread-private until done.set() publishes
                 session.trace = trace
                 ex = Executor(runner.catalogs, session, self.device,
                               collect_stats=collect)
@@ -329,10 +330,10 @@ class _Task:
                     with trace.span("task_execute",
                                     task=self.task_id):
                         res = ex.execute(body)
-                    self.spans = trace.to_dicts()
+                    self.spans = trace.to_dicts()  # tt-lint: ignore[race-attr-write] task-thread-private until done.set() publishes; status readers wait on done
                 else:
                     res = ex.execute(body)
-                self.node_stats = [s.to_dict() for s in ex.stats]
+                self.node_stats = [s.to_dict() for s in ex.stats]  # tt-lint: ignore[race-attr-write] task-thread-private until done.set() publishes
                 if collect and ex.stats:
                     # learned stats: observe this fragment's operator
                     # flow under the fragment body's canonical key (the
@@ -345,10 +346,10 @@ class _Task:
                                           session)
                     except Exception:  # noqa: BLE001 — best-effort
                         pass
-                self.peak_memory_bytes = ex.peak_reserved_bytes
-                self.spill_bytes = ex.spilled_bytes
-                self.stream_chunks = ex.stream_chunks
-                self.stream_h2d_bytes = ex.stream_h2d_bytes
+                self.peak_memory_bytes = ex.peak_reserved_bytes  # tt-lint: ignore[race-attr-write] task-thread-private until done.set() publishes
+                self.spill_bytes = ex.spilled_bytes  # tt-lint: ignore[race-attr-write] task-thread-private until done.set() publishes
+                self.stream_chunks = ex.stream_chunks  # tt-lint: ignore[race-attr-write] task-thread-private until done.set() publishes
+                self.stream_h2d_bytes = ex.stream_h2d_bytes  # tt-lint: ignore[race-attr-write] task-thread-private until done.set() publishes
             else:
                 runner = LocalQueryRunner(session=session,
                                           device=self.device,
@@ -377,14 +378,14 @@ class _Task:
                 keys, kind = (), "gather"
                 if isinstance(plan, _PO):
                     keys, kind = plan.partition_keys, plan.kind
-                self.pages = partition_frames(
+                self.pages = partition_frames(  # tt-lint: ignore[race-attr-write] task-thread-private until done.set() publishes
                     res, keys, kind,
                     int(stage.get("nparts_out") or 1), codec=codec,
                     session=session)
                 self.spool.commit(str(stage["exchange_key"]), 0, 0,
                                   self.attempt, self.pages)
             else:
-                self.pages = paginate(res, codec=codec)
+                self.pages = paginate(res, codec=codec)  # tt-lint: ignore[race-attr-write] task-thread-private until done.set() publishes
                 if self.spool is not None:
                     # durable output: completed pages outlive the
                     # in-memory task entry, so an aborted/evicted
@@ -397,31 +398,31 @@ class _Task:
                         getdir = getattr(self.spool, "attempt_dir",
                                          None)
                         if getdir is not None:
-                            self.spool_dir = getdir(self.task_id, 0, 0)
+                            self.spool_dir = getdir(self.task_id, 0, 0)  # tt-lint: ignore[race-attr-write] task-thread-private until done.set() publishes
                     except Exception:  # noqa: BLE001 — best-effort
                         pass
-            self.state = "FINISHED"
+            self.state = "FINISHED"  # tt-lint: ignore[race-attr-write] races only with abort's CANCELED stamp; either terminal state is valid, done.set() publishes
         except Exception as e:   # noqa: BLE001
-            self.state = "FAILED"
-            self.error = f"{type(e).__name__}: {e}"
+            self.state = "FAILED"  # tt-lint: ignore[race-attr-write] races only with abort's CANCELED stamp; either terminal state is valid, done.set() publishes
+            self.error = f"{type(e).__name__}: {e}"  # tt-lint: ignore[race-attr-write] task-thread-private until done.set() publishes
         finally:
             if handle is not None:
                 handle.close()      # release the runner slot + the
                 #                     scheduler's per-query accounting
                 # scheduler-accounted CPU: the sum of this task's
                 # quantum stamps (finalized by close() above)
-                self.cpu_seconds = float(handle.cpu_s)
+                self.cpu_seconds = float(handle.cpu_s)  # tt-lint: ignore[race-attr-write] task-thread-private until done.set() publishes
             else:
                 # schedulerless embedding: the raw thread-CPU delta of
                 # the whole run is the best available figure
-                self.cpu_seconds = max(
+                self.cpu_seconds = max(  # tt-lint: ignore[race-attr-write] task-thread-private until done.set() publishes
                     _time.thread_time() - cpu0, 0.0)
             try:
                 # observation DELTAS since the task started, original
                 # origins preserved — the coordinator-side merge skips
                 # its own (shared-process workers) without losing a
                 # remote worker's genuine observations
-                self.learned_stats = LEARNED_STATS.export_delta(lstats_before)
+                self.learned_stats = LEARNED_STATS.export_delta(lstats_before)  # tt-lint: ignore[race-attr-write] task-thread-private until done.set() publishes
             except Exception:    # noqa: BLE001
                 pass
             _M_TASKS.inc(state=self.state)
@@ -530,11 +531,25 @@ class TaskWorkerServer:
                     self.end_headers()
                     self.wfile.write(body)
                     return
-                if self.path.startswith("/v1/ingest/"):
-                    self.close_connection = True
-                    body = json.dumps({"error": "not yet ported: "
-                                       "/v1/ingest (streaming)"}).encode()
-                    self.send_response(501)
+                # /v1/ingest/{topic}: any worker accepts producer
+                # appends; segment files under the shared stream dir
+                # are the source of truth, so the coordinator's scans
+                # see worker-side ingests with no forwarding hop
+                from urllib.parse import parse_qs, urlparse
+                parsed = urlparse(self.path)
+                route = [p for p in parsed.path.split("/") if p]
+                if len(route) == 3 and route[:2] == ["v1", "ingest"]:
+                    from ..streaming.log import get_log, ingest_http
+                    n = int(self.headers.get("Content-Length", 0))
+                    data = self.rfile.read(n)
+                    try:
+                        out = ingest_http(get_log(), route[2], data,
+                                          parse_qs(parsed.query))
+                        code = 200
+                    except ValueError as e:
+                        out, code = {"error": str(e)}, 400
+                    body = json.dumps(out).encode()
+                    self.send_response(code)
                     self.send_header("Content-Type", "application/json")
                     self.send_header("Content-Length", str(len(body)))
                     self.end_headers()

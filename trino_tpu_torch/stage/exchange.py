@@ -82,14 +82,61 @@ def exchange_task_key(query_id: str, sid: int, part: int) -> str:
 _REPL_LOCK = threading.Lock()
 _REPL_CACHE: "OrderedDict[Tuple[str, int], bytes]" = OrderedDict()
 _REPL_BYTES = [0]           # box: mutated under _REPL_LOCK only
+# (key, index) -> the pull in progress; what makes the cache fetch-once
+# when sibling consumer tasks start together
+_REPL_INFLIGHT: "Dict[Tuple[str, int], _InFlight]" = {}
 
 
-def _replicate_cache_get(key: str, index: int) -> Optional[bytes]:
+class _InFlight:
+    """One replicate pull in progress: the leader sets ``frame`` (or
+    leaves it None when its pull failed) and then ``done``."""
+    __slots__ = ("done", "frame")
+
+    def __init__(self):
+        self.done = threading.Event()
+        self.frame: Optional[bytes] = None
+
+
+def _replicate_fetch(key: str, index: int, pull, cancel=None) -> bytes:
+    """Single-flight fetch-once read of a replicate frame: a cached
+    frame is a hit; the first reader that misses registers an in-flight
+    entry and pulls, and concurrent readers of the same ``(key,
+    index)`` wait for it and take its bytes (also a hit). A failed pull
+    caches nothing: its waiters wake and pull for themselves."""
+    k = (key, index)
     with _REPL_LOCK:
-        frame = _REPL_CACHE.get((key, index))
+        frame = _REPL_CACHE.get(k)
         if frame is not None:
-            _REPL_CACHE.move_to_end((key, index))
-    REPLICATE_CACHE.inc(result="hit" if frame is not None else "miss")
+            _REPL_CACHE.move_to_end(k)
+            flight, leader = None, False
+        else:
+            flight = _REPL_INFLIGHT.get(k)
+            leader = flight is None
+            if leader:
+                flight = _REPL_INFLIGHT[k] = _InFlight()
+    if frame is not None:
+        REPLICATE_CACHE.inc(result="hit")
+        return frame
+    if not leader:
+        while not flight.done.wait(0.05):
+            if cancel is not None and cancel.is_set():
+                raise RuntimeError(f"exchange pull of {key} canceled")
+        if flight.frame is not None:
+            REPLICATE_CACHE.inc(result="hit")
+            return flight.frame
+        REPLICATE_CACHE.inc(result="miss")
+        frame = pull()
+        _replicate_cache_put(key, index, frame)
+        return frame
+    REPLICATE_CACHE.inc(result="miss")
+    try:
+        frame = pull()
+        _replicate_cache_put(key, index, frame)
+        flight.frame = frame
+    finally:
+        with _REPL_LOCK:
+            _REPL_INFLIGHT.pop(k, None)
+        flight.done.set()
     return frame
 
 
@@ -241,17 +288,16 @@ class ExchangePuller:
         index = 0 if kind in ("gather", "replicate") else None
         out, nbytes = [], 0
         for key, uri in zip(tasks, uris):
-            frame = None
+            def pull(key=key, uri=uri):
+                return self.pull_frame(key, uri, index=index,
+                                       candidates=candidates,
+                                       eager=eager)
             if kind == "replicate":
                 # fetch-once: sibling consumer tasks on this worker
-                # already pulled the identical broadcast frame
-                frame = _replicate_cache_get(key, 0)
-            if frame is None:
-                frame = self.pull_frame(key, uri, index=index,
-                                        candidates=candidates,
-                                        eager=eager)
-                if kind == "replicate":
-                    _replicate_cache_put(key, 0, frame)
+                # share one pull of the identical broadcast frame
+                frame = _replicate_fetch(key, 0, pull, self.cancel)
+            else:
+                frame = pull()
             nbytes += len(frame)
             out.append(deserialize_batch(frame, self.device))
         EXCHANGE_PARTITIONS.inc(len(out), direction="read")

@@ -235,7 +235,7 @@ class StageExecution:
         candidates = [c.base_uri for c in self.s.workers]
         for st in self.dag.stages:
             n = self.ntasks[st.sid]
-            self.sources[st.sid] = {
+            self.sources[st.sid] = {  # tt-lint: ignore[race-attr-write] published by the driver thread BEFORE any task thread launches; task threads only assign uris slots
                 "tasks": [exchange_task_key(self.qid, st.sid, p)
                           for p in range(n)],
                 "uris": [None] * n,
@@ -299,7 +299,7 @@ class StageExecution:
                 # below are bounded by the same shrinking remainder)
                 self.s._check_deadline(f"stage {stage.sid} dispatch")
                 self._await_stage(self._launch_stage(stage))
-        self.overlap_ratio = self._compute_overlap()
+        self.overlap_ratio = self._compute_overlap()  # tt-lint: ignore[race-attr-write] driver-thread-only, written after every stage's tasks completed
         MPP_OVERLAP_RATIO.set(self.overlap_ratio)
         return self.sources
 
@@ -451,7 +451,7 @@ class StageExecution:
             # publish the winner uri for consumers dispatched from now
             # on (pipelined consumers already in flight sweep the
             # candidates list instead)
-            self.sources[sid]["uris"][st.part] = client.base_uri
+            self.sources[sid]["uris"][st.part] = client.base_uri  # tt-lint: ignore[race-attr-write] slot-exclusive: one winner per part, list item assignment is atomic
             # the winner MUST set st.done (finally): a crash in the
             # best-effort telemetry would strand the untimed stage wait
             try:
@@ -657,11 +657,11 @@ class StageExecution:
                     with st.lock:
                         st.winner = (committed, -1, False)
                     st.done.set()
-                    self.resumed_parts += 1
+                    self.resumed_parts += 1  # tt-lint: ignore[race-attr-write] driver-thread-only: counted before any task thread launches
                     FAILOVER_PARTITIONS.inc(outcome="resumed")
                 else:
                     pending.append(st)
-                    self.replayed_parts += 1
+                    self.replayed_parts += 1  # tt-lint: ignore[race-attr-write] driver-thread-only: counted before any task thread launches
                     FAILOVER_PARTITIONS.inc(outcome="replayed")
         for st in pending:
             threading.Thread(target=run_task, args=(st,),
@@ -690,5 +690,5 @@ class StageExecution:
         fault_point("coordinator.post_stage_commit")
         if s.collect_stats:
             from ..exec.executor import merge_node_stats
-            self.stage_stats[sid] = merge_node_stats(sr.worker_stats)
-            self.stage_reported[sid] = len(sr.worker_stats)
+            self.stage_stats[sid] = merge_node_stats(sr.worker_stats)  # tt-lint: ignore[race-attr-write] driver-thread-only, written after the stage's tasks completed
+            self.stage_reported[sid] = len(sr.worker_stats)  # tt-lint: ignore[race-attr-write] driver-thread-only, written after the stage's tasks completed
