@@ -1420,3 +1420,62 @@ def test_window_job_recompute_launches_grouped_sums(cuda, tmp_path):
         want[key] = (c + 1, sv + i * 0.25)
     _rows_match(got, [[f, s, c, sv] for (f, s), (c, sv)
                       in sorted(want.items())])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q", [1, 3])
+def test_two_shard_mesh_on_one_card_matches_one_device(cuda, q):
+    """A mesh of 2 shards on the one card (exec/distributed.py, the
+    stage DAG on the mesh) answers as the single-device runner."""
+    sql = TPCH_QUERIES[q]
+    mesh = LocalQueryRunner(device=cuda, distributed=True, n_devices=2)
+    assert mesh.mesh.size == 2 and all(
+        d.type == "cuda" for d in mesh.mesh.devices)
+    got = mesh.execute(sql).rows
+    want = LocalQueryRunner(device=cuda).execute(sql).rows
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            if isinstance(b, float):
+                assert a == pytest.approx(b, rel=SUM_REL)
+            else:
+                assert a == b
+
+
+@pytest.mark.gpu
+def test_warmed_worker_first_query_builds_nothing(cuda, tmp_path):
+    """A fresh process warms q1's recorded shapes (exec/aot.py); its
+    first q1 then builds and loads no library: the warm-up did."""
+    import json
+    import pathlib
+    import subprocess
+    import sys
+    root = str(pathlib.Path(__file__).resolve().parent.parent)
+    shapes = tmp_path / "shapes.json"
+    record = (
+        "import json, sys\n"
+        "from trino_tpu_torch.runner import LocalQueryRunner\n"
+        "from trino_tpu_torch.benchmarks.tpch_queries import TPCH_QUERIES\n"
+        "from trino_tpu_torch.exec.hotshapes import HOT_SHAPES\n"
+        "LocalQueryRunner().execute(TPCH_QUERIES[1])\n"
+        "json.dump(HOT_SHAPES.top(16), open(sys.argv[1], 'w'))\n")
+    warm = (
+        "import json, sys\n"
+        "from trino_tpu_torch.runner import LocalQueryRunner\n"
+        "from trino_tpu_torch.benchmarks.tpch_queries import TPCH_QUERIES\n"
+        "from trino_tpu_torch.exec import aot\n"
+        "from trino_tpu_torch.ops import cuda_groupby as cg, native\n"
+        "out = aot.compile_entries(json.load(open(sys.argv[1])), 'cuda')\n"
+        "assert out['errors'] == 0 and out['compiled'] > 0, out\n"
+        "before = (cg.BUILDS, sorted(native._LIBS))\n"
+        "launches = cg.LAUNCHES\n"
+        "LocalQueryRunner().execute(TPCH_QUERIES[1])\n"
+        "print(json.dumps([before == (cg.BUILDS, sorted(native._LIBS)),\n"
+        "                  cg.BUILDS, cg.LAUNCHES - launches]))\n")
+    for code in (record, warm):
+        out = subprocess.run([sys.executable, "-c", code, str(shapes)],
+                             capture_output=True, text=True, cwd=root,
+                             timeout=600)
+        assert out.returncode == 0, out.stderr
+    same, builds, launches = json.loads(out.stdout.strip().splitlines()[-1])
+    assert same and builds == 1 and launches > 0

@@ -310,3 +310,43 @@ def test_a_stream_scan_continuous_job_and_otlp_export_load_no_jax():
                          text=True, cwd=str(PKG.parent), timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_the_mesh_and_prewarm_modules_are_covered():
+    """The device mesh, the mesh executor, the stage DAG on the mesh, the
+    hot-shape registry, the pre-warm and the q18 oracle are the port's
+    own modules, and the checks above reach them."""
+    for m in ("trino_tpu_torch.parallel.mesh",
+              "trino_tpu_torch.parallel.spmd",
+              "trino_tpu_torch.exec.distributed",
+              "trino_tpu_torch.stage.ici",
+              "trino_tpu_torch.exec.hotshapes",
+              "trino_tpu_torch.exec.aot",
+              "trino_tpu_torch.benchmarks.q18_oracle"):
+        assert m in MODULES
+
+
+def test_the_mesh_path_loads_no_jax():
+    """A query over an 8-shard CPU mesh and a warm-up of its shapes:
+    still no jax and no trino_tpu module in the process."""
+    code = (
+        "import sys\n"
+        "from trino_tpu_torch.runner import LocalQueryRunner\n"
+        "from trino_tpu_torch.exec import aot\n"
+        "from trino_tpu_torch.exec.hotshapes import HOT_SHAPES\n"
+        "r = LocalQueryRunner(device='cpu', distributed=True, "
+        "n_devices=8)\n"
+        "r.execute('SELECT l_returnflag, count(*) FROM lineitem "
+        "GROUP BY 1 ORDER BY 1')\n"
+        "LocalQueryRunner(device='cpu').execute('SELECT o_orderpriority, "
+        "count(*) FROM orders GROUP BY 1 ORDER BY 1')\n"
+        "assert aot.compile_entries(HOT_SHAPES.top(8), 'cpu')"
+        "['errors'] == 0\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
+        "             or m.startswith(('jax.', 'jaxlib'))\n"
+        "             or m == 'trino_tpu' or m.startswith('trino_tpu.'))\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=str(PKG.parent), timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"

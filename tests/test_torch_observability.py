@@ -165,11 +165,17 @@ def test_jit_cache_counters_and_compile_attribution(runners):
     the port compiles no programs, so its node stats carry no compile
     time and no cache verdict, run after run."""
     from trino_tpu.exec.executor import Executor as TpuExecutor, _M_JIT
+    from trino_tpu.exec.executor import _CHAIN_JIT_CACHE
     from trino_tpu_torch.exec.executor import Executor
     sql = ("SELECT l_orderkey + 7 AS k FROM lineitem "
            "WHERE l_quantity > 30")
     port, tpu = runners
     plan = tpu.plan_sql(sql)
+    # the JAX package's program cache is process-wide: a test file that
+    # ran this canonical chain earlier in the same worker process
+    # (tests/test_observability.py runs this very query) would make the
+    # first run a hit too
+    _CHAIN_JIT_CACHE.clear()
     before_hit = _M_JIT.value(cache="chain", result="hit")
     for _ in range(2):
         ex = TpuExecutor(tpu.catalogs,

@@ -151,11 +151,13 @@ def test_http_status_of_unknown_routes_and_auth(pair):
 
 
 def test_not_yet_ported_routes_answer_501(pair):
-    """Only the hot-shape feed is left unported; the streaming and OTLP
-    routes answer as the JAX coordinator's do."""
+    """No route is left unported: the hot-shape feed, the streaming and
+    the OTLP routes answer as the JAX coordinator's do."""
     jco, tco = pair
     status, body = http("GET", tco.base_uri + "/v1/hotshapes")
-    assert status == 501 and "not yet ported" in body["error"]
+    jstatus, jbody = http("GET", jco.base_uri + "/v1/hotshapes")
+    assert status == jstatus == 200 and set(body) == set(jbody)
+    assert isinstance(body["shapes"], list)
     for path in ("/v1/continuous/cq_none", "/v1/trace/q1"):
         got = http("GET", tco.base_uri + path)
         assert got == http("GET", jco.base_uri + path) and got[0] == 404
@@ -436,8 +438,12 @@ def test_coordinator_needs_a_card_unless_cpu_is_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Coordinator()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        Coordinator(device="cpu", distributed=True)
+    # the mesh follows the device: on the CPU its shards are CPU devices,
+    # and without a card a mesh on the card raises
+    co = Coordinator(device="cpu", distributed=True)
+    assert all(d.type == "cpu" for d in co._proto.mesh.devices)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Coordinator(distributed=True)
     # workers run on their own devices; the coordinator's default is
     # the card all the same
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -2,9 +2,9 @@
 stage-DAG fragmenter, the hash repartition on the device (buckets equal
 to the JAX package's), the worker-to-worker partitioned exchange and
 per-stage fault tolerance, through port workers on the CPU, each result
-held against the JAX engine's rows on the same query. Counterparts of
-tests/test_stage_mpp.py but its two mesh (``ici``) cases, which stay
-with ROADMAP item 10.
+held against the JAX engine's rows on the same query, and the stage DAG
+on the device mesh (stage/ici.py, 8 CPU shards). Counterparts of
+tests/test_stage_mpp.py.
 
 The reference's own description:
 
@@ -790,3 +790,50 @@ def test_fragmenter_dag_equals_the_jax_packages(name):
         tpu_parse(sql)), tr.catalogs, tr.session)
     tdag = TpuFragmenter(tr.catalogs, tr.session).fragment(tplan)
     assert dag.lines() == tdag.lines()
+
+
+# --------------------------------------------------------------------------
+# the stage DAG on the device mesh (stage/ici.py)
+# --------------------------------------------------------------------------
+
+def test_ici_stage_execution_matches_local():
+    """LocalQueryRunner(distributed=True) runs a fragmentable plan as the
+    same stage DAG with the hash repartition lowered to copies between
+    the mesh's shards: the rows equal the JAX engine's, the ICI byte
+    counter moves and the spool counter does not."""
+    sql = ("SELECT o_orderpriority, count(*), sum(l_extendedprice) "
+           "FROM lineitem JOIN orders ON l_orderkey = o_orderkey "
+           "GROUP BY o_orderpriority ORDER BY o_orderpriority")
+    want = _tpu_rows(sql)
+    ici_b = _counter("trino_tpu_exchange_ici_bytes_total")
+    edges = _counter("trino_tpu_exchange_ici_edges_total")
+    spool_b = _counter("trino_tpu_exchange_partition_bytes_total")
+    r = LocalQueryRunner(Session(catalog="tpch", schema="tiny"),
+                         device="cpu", distributed=True, n_devices=8,
+                         collect_node_stats=True)
+    res = r.execute(sql)
+    assert len(res.rows) == len(want)
+    for d, l in zip(res.rows, want):
+        assert d[0] == l[0] and d[1] == l[1]
+        assert d[2] == pytest.approx(l[2], rel=1e-9)
+    assert _counter("trino_tpu_exchange_ici_bytes_total") > ici_b
+    assert _counter("trino_tpu_exchange_ici_edges_total") > edges
+    assert _counter(
+        "trino_tpu_exchange_partition_bytes_total") == spool_b
+    assert "_ici_execute" in "\n".join(res.trace.lines())
+
+
+def test_ici_exchange_off_keeps_node_path():
+    """ici_exchange=false keeps the node-at-a-time mesh executor: same
+    answers, no ICI edge counted."""
+    sql = ("SELECT n_name, count(*) FROM nation "
+           "JOIN customer ON c_nationkey = n_nationkey "
+           "GROUP BY n_name ORDER BY 1")
+    want = _tpu_rows(sql)
+    edges = _counter("trino_tpu_exchange_ici_edges_total")
+    s = Session(catalog="tpch", schema="tiny")
+    s.set("ici_exchange", False)
+    got = LocalQueryRunner(s, device="cpu", distributed=True,
+                           n_devices=8).execute(sql).rows
+    assert got == want
+    assert _counter("trino_tpu_exchange_ici_edges_total") == edges

@@ -703,3 +703,33 @@ def test_the_jax_engine_stores_a_column_list_by_position():
                        "VALUES ('x', 1)")
     with pytest.raises(Exception):
         jax_runner.execute("SELECT a, b, c FROM memory.default.r")
+
+
+# ---- EXECUTE ... USING keeps each value's type (ROADMAP C4) ---------------
+
+def test_execute_using_a_date_equals_the_inline_query():
+    """A DATE bound through USING stays a DATE: the port answers as the
+    query with the literal inline (Trino does)."""
+    r = LocalQueryRunner(device="cpu")
+    r.execute("PREPARE s FROM SELECT count(*), sum(l_quantity) "
+              "FROM lineitem WHERE l_shipdate = ?")
+    got = r.execute("EXECUTE s USING DATE '1995-03-15'").rows
+    want = r.execute("SELECT count(*), sum(l_quantity) FROM lineitem "
+                     "WHERE l_shipdate = DATE '1995-03-15'").rows
+    assert got == want and got[0][0] > 0
+    r.execute("PREPARE t FROM SELECT ? + 1, ?")
+    assert r.execute("EXECUTE t USING 41, 'x'").rows == [[42, "x"]]
+    with pytest.raises(QueryError):
+        r.execute("EXECUTE t USING 1")
+
+
+def test_the_jax_engine_types_a_using_date_as_its_day_number():
+    """The JAX package binds a USING value as its planner constant's
+    value, which drops a DATE's type: the comparison then fails to
+    plan (the fault the port does not copy)."""
+    t = TpuRunner()
+    t.execute("PREPARE s FROM SELECT count(*) FROM lineitem "
+              "WHERE l_shipdate = ?")
+    with pytest.raises(Exception) as e:
+        t.execute("EXECUTE s USING DATE '1995-03-15'")
+    assert "incompatible types date and integer" in str(e.value)

@@ -337,6 +337,14 @@ def _count(run_sql, table: str) -> int:
         return 0
 
 
+def _rows(run_sql, sql: str):
+    """The rows of ``sql``; None while its table does not exist yet."""
+    try:
+        return run_sql(sql).rows
+    except Exception:           # noqa: BLE001 — not created yet
+        return None
+
+
 _SINK_SQL = ("INSERT INTO memory.default.sink SELECT _partition, _offset, v "
              "FROM stream.default.events")
 
@@ -433,9 +441,11 @@ def test_continuous_window_watermark(tmp_path, monkeypatch):
                 "watermark") == 3500.0 and _count(
                     run_sql, "memory.default.winmv__cq_staging") == 10,
                 what="watermark advance")
-            _wait_until(lambda: run_sql(
-                "SELECT k, c FROM memory.default.winmv ORDER BY k"
-            ).rows == [[0, 4], [1, 4]], what="the view at the watermark")
+            # the view's table appears at the end of the cycle that
+            # staged the rows: it may not exist yet when the staging does
+            _wait_until(lambda: _rows(
+                run_sql, "SELECT k, c FROM memory.default.winmv ORDER BY k"
+            ) == [[0, 4], [1, 4]], what="the view at the watermark")
             staged = run_sql(
                 "SELECT count(*), count(DISTINCT _partition * 1000000 "
                 "+ _offset) FROM memory.default.winmv__cq_staging").rows[0]

@@ -8,7 +8,7 @@ or directly over an in-process LocalQueryRunner with --local (on
 ``--device``, ``cuda`` unless ``cpu`` is asked for).
 
 Usage:
-    python -m trino_tpu_torch.cli --local [--device cpu]
+    python -m trino_tpu_torch.cli --local [--device cpu] [--distributed]
     python -m trino_tpu_torch.cli --server http://127.0.0.1:8080 \
         --execute "SELECT 1"
 """
@@ -42,6 +42,9 @@ def main(argv=None):
                     help="coordinator URI (client mode)")
     ap.add_argument("--local", action="store_true",
                     help="run the engine in-process")
+    ap.add_argument("--distributed", action="store_true",
+                    help="[--local] run over the device mesh (one shard "
+                         "per visible card; 8 shards on the CPU)")
     ap.add_argument("--device", default="cuda",
                     help="[--local] torch device: cuda (default) or cpu")
     ap.add_argument("--catalog", default="tpch")
@@ -70,7 +73,9 @@ def main(argv=None):
         from .session import Session
         runner = LocalQueryRunner(
             session=Session(catalog=args.catalog, schema=args.schema),
-            device=args.device)
+            device=args.device, distributed=args.distributed,
+            n_devices=8 if args.distributed and args.device == "cpu"
+            else None)
 
         def run(sql):
             t0 = time.time()

@@ -66,8 +66,14 @@ class EngineConfig:
     # device bytes the scan cache (exec/scancache.py) may hold across
     # queries; 0 turns the cache off
     scan_cache_bytes: int = 4 << 30
-    prewarm_enabled: bool = True
-    prewarm_top_k: int = 8
+    # the hot-shape pre-warm (exec/hotshapes.py, exec/aot.py): registry
+    # capacity, how many top shapes a joining worker warms before it
+    # announces itself warm, and the process-wide pre-warm default (each
+    # query's recording is gated by the prewarm_enabled session property)
+    hot_shape_entries: int = _env_int("TRINO_TPU_HOT_SHAPE_ENTRIES", 128)
+    prewarm_top_k: int = _env_int("TRINO_TPU_PREWARM_TOP_K", 8)
+    prewarm_enabled: bool = os.environ.get("TRINO_TPU_PREWARM",
+                                           "1") == "1"
     stream_chunk_rows: int = 0
     ragged_batch_rows: int = 1 << 16
     # process-wide default for the stream_poll_interval_ms session

@@ -94,7 +94,7 @@ from .scancache import (cache_memory_bytes, col_bytes, evict_cache_pressure,
 from .streamjoin import (_row_bytes, agg_chunk_capacity, check_interrupt,
                          host_scan_chunks, maybe_stream_chain,
                          maybe_stream_join, run_streamed)
-from .window import execute_window
+from .window import execute_window, window_recordable
 
 # position lanes that carry probe / build row numbers through a residual
 # filter, so outer rows whose matches all failed can be null-extended
@@ -321,6 +321,12 @@ class Executor:
         self.stream_wait_ms: float = 0.0
         self.stream_ops: Dict[str, int] = {}
         self.stream_s: float = 0.0
+        # the hot-shape registry's chain hook (exec/hotshapes.py): the
+        # source node of a chain of row-local nodes -> the chain's
+        # canonical program, recorded once the source's output is known;
+        # the chain's lower members are not chain tops of their own
+        self._chain_bases: Dict[int, object] = {}
+        self._chain_members: set = set()
         # a worker task's split share: (part, nparts) makes every scan
         # read only the splits whose index % nparts == part, generated
         # on this device (server/task_worker.py)
@@ -343,6 +349,15 @@ class Executor:
         check_interrupt(self.session)
         if not self.collect_stats:
             return self._execute_inner(node)
+        return self._stats_wrap(node, lambda: self._execute_inner(node))
+
+    def _value_rows_bytes(self, out) -> Tuple[int, int]:
+        """(live rows, lane bytes) of a node's output."""
+        return (out.num_rows_host(),
+                sum(col_bytes(c) for c in out.columns.values()))
+
+    def _stats_wrap(self, node: PlanNode, fn):
+        """``fn()`` (the node's execution) with its NodeStats recorded."""
         # the streamed chunks and bytes of the node's children, which the
         # node's own count leaves out
         frame = {"rows": 0, "bytes": 0, "child_chunks": 0, "child_h2d": 0}
@@ -351,15 +366,14 @@ class Executor:
         t0 = time.perf_counter()
         cpu0 = time.thread_time()
         try:
-            out = self._execute_inner(node)
+            out = fn()
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         finally:
             self._frames.pop()
         wall = time.perf_counter() - t0
         cpu_s = max(time.thread_time() - cpu0, 0.0)
-        n = out.num_rows_host()
-        obytes = sum(col_bytes(c) for c in out.columns.values())
+        n, obytes = self._value_rows_bytes(out)
         chunks = self.stream_chunks - chunks0
         h2d = self.stream_h2d_bytes - h2d0
         own = chunks - frame["child_chunks"]
@@ -400,15 +414,42 @@ class Executor:
                 if method is None:
                     raise QueryError(
                         f"not yet ported: {type(node).__name__}")
+                self._note_chain(node)
                 out = method(node)
         except (EvalError, NotImplementedError) as e:
             raise QueryError(str(e)) from e
         if out.spilled:
             # the one place a spilled batch returns to the device: the
             # parent reads its child's output here, from pinned memory
-            return out.to(self.device, non_blocking=True)
-        self._check_device(out, type(node).__name__)
+            out = out.to(self.device, non_blocking=True)
+        else:
+            self._check_device(out, type(node).__name__)
+        canon = self._chain_bases.pop(id(node), None)
+        if canon is not None:
+            from .hotshapes import record_canonical
+            record_canonical("chain", canon, out, self.session)
         return out
+
+    def _note_chain(self, node: PlanNode) -> None:
+        """At the top of a chain of row-local nodes (the JAX package's
+        traceable chain, an aggregation being a barrier), remember its
+        canonical program under the chain's source node, whose output is
+        the program's input (hot-shape recording, exec/hotshapes.py)."""
+        if not isinstance(node, _CHAIN_NODES):
+            return
+        if id(node) in self._chain_members:
+            self._chain_members.discard(id(node))
+            return
+        chain: List[PlanNode] = []
+        cur = node
+        while isinstance(cur, _CHAIN_NODES):
+            chain.append(cur)
+            cur = cur.source
+        from .progkey import canonicalize_nodes
+        canon = canonicalize_nodes(chain)
+        if canon is not None:
+            self._chain_bases[id(cur)] = canon
+            self._chain_members.update(id(n) for n in chain[1:])
 
     def _check_device(self, b: Batch, what: str) -> None:
         dev = self.device
@@ -461,12 +502,14 @@ class Executor:
         return Batch({s: eval_expr(e, b) for s, e in nd.assignments.items()},
                      b.num_rows)
 
-    def _read_split(self, conn, split, columns) -> Batch:
-        """A split read through the scan cache, on this device. A split is
-        also where a cancel or a passed deadline stops a scan."""
+    def _read_split(self, conn, split, columns,
+                    device: Optional[torch.device] = None) -> Batch:
+        """A split read through the scan cache, on this device (or a mesh
+        shard's). A split is also where a cancel or a passed deadline
+        stops a scan."""
         check_interrupt(self.session)
         t0 = time.perf_counter()
-        b = read_split_cached(conn, split, columns).to(self.device)
+        b = read_split_cached(conn, split, columns).to(device or self.device)
         self.count_input(b)
         on_split = getattr(self.session, "on_split", None)
         if on_split is not None:
@@ -517,15 +560,30 @@ class Executor:
                  else read_table_cached(conn, cur.handle, columns, par,
                                         self.device))
         partial, run_full = make_stream_runners(self, chain, node)
+        from .progkey import canonicalize_nodes
+        canon = canonicalize_nodes([node] + chain)
+        recorded = [False]
 
         def renamed(raw: Batch) -> Batch:
             return Batch({sym: raw.column(col)
                           for sym, col in cur.assignments.items()},
                          raw.num_rows)
 
+        def record(kind: str, b: Batch) -> None:
+            # the program shape, once per query (exec/hotshapes.py)
+            if canon is None or recorded[0]:
+                return
+            recorded[0] = True
+            from .hotshapes import record_canonical
+            record_canonical(kind, canon, b, self.session,
+                             None if kind == "stream"
+                             else (canon.key, "full"))
+
         if whole is not None:
             self.count_input(whole)
-            return run_full(renamed(whole.to(self.device)))
+            b = renamed(whole.to(self.device))
+            record("stream_full", b)
+            return run_full(b)
         splits = None
         if stream_cap is None:
             splits = self.split_share(conn.get_splits(cur.handle, par))
@@ -538,6 +596,7 @@ class Executor:
         post: dict = {}
 
         def consume(batch: Batch) -> Batch:
+            record("stream", batch)
             out, fins, fns = partial(batch)
             if not finals:
                 finals.extend(fins)
@@ -751,7 +810,14 @@ class Executor:
         return device_concat(copies)
 
     def _exec_WindowNode(self, node: WindowNode) -> Batch:
-        return execute_window(self.execute(node.source), node)
+        src = self.execute(node.source)
+        if window_recordable(node):
+            from .progkey import canonicalize_nodes
+            canon = canonicalize_nodes([node])
+            if canon is not None:
+                from .hotshapes import record_canonical
+                record_canonical("window", canon, src, self.session)
+        return execute_window(src, node)
 
     def _exec_UnnestNode(self, node: UnnestNode) -> Batch:
         """UNNEST: each input row becomes as many rows as its longest
@@ -855,9 +921,11 @@ class Executor:
                                            "left" if outer else "inner")
             else:
                 self._reserve(total, width, "join output")
+                out_cap = capacity_for(total)
                 out = join_ops.expand_join(left, right, start, count,
-                                           order, capacity_for(total),
+                                           order, out_cap,
                                            "left" if outer else "inner")
+                self._record_join(node, left, right, out_cap)
             if jt == "full":
                 out = self._append_right_unmatched(out, left, right, pkeys,
                                                    bkeys)
@@ -881,6 +949,20 @@ class Executor:
                                     capacity_for(total), "inner")
         out = compact.filter_batch(cand, eval_predicate(filt, cand))
         return self._repair_outer(out, left, right, jt)
+
+    def _record_join(self, node: JoinNode, left: Batch, right: Batch,
+                     out_cap: int) -> None:
+        """The materialised join's shape into the hot-shape registry."""
+        if any(c.elements is not None or c.children is not None
+               for b in (left, right) for c in b.columns.values()):
+            return
+        from .hotshapes import join_key, join_payload, record_program
+        jt = "left" if node.join_type in ("left", "full") else "inner"
+        record_program(
+            "join", join_key("join", jt, node.criteria, None, left, right,
+                             out_cap), None, None, self.session,
+            payload_fn=lambda: join_payload(jt, node.criteria, None, left,
+                                            right, out_cap, "join"))
 
     def _reserve(self, rows: int, n_lanes: int, what: str) -> None:
         """Check an allocation against query_max_memory_per_node before
@@ -1084,6 +1166,12 @@ class Executor:
             BOOLEAN, _hit(cand.column(_PPOS).data, live, src.capacity),
             None)
         return Batch(cols, src.num_rows)
+
+
+# row-local nodes that form one chain program above their source (the JAX
+# package's traceable chain; an aggregation is a barrier)
+_CHAIN_NODES = (FilterNode, ProjectNode, LimitNode, OffsetNode, SortNode,
+                TopNNode, SampleNode, AssignUniqueIdNode, MarkDistinctNode)
 
 
 def setop_tag(lb: Batch, rb: Batch) -> List[Batch]:

@@ -5,8 +5,12 @@ plan nodes is rewritten over canonical symbol names (``c0, c1, ...`` in
 execution-order first use), so two plans that differ only in the
 planner's symbol numbering or column order get one key. The port has
 no compiled-program caches; the key is the identity that the result
-cache (exec/resultcache.py) and the learned statistics
-(exec/learnedstats.py, through ``node_fingerprint``) share. Constant
+cache (exec/resultcache.py), the learned statistics
+(exec/learnedstats.py, through ``node_fingerprint``) and the hot-shape
+registry (exec/hotshapes.py) share. A ``Binding`` renames a plan's
+columns to the canonical names and back; ``wire_fragment`` and
+``peel_wire_fragment`` carry a canonical stack in plan/serde's wire form
+(the pre-warm's payload, exec/aot.py). Constant
 literals are canonicalized to their typed planner values but never
 erased: different constants are different programs.
 """
@@ -14,12 +18,13 @@ erased: different constants are different programs.
 from __future__ import annotations
 
 from dataclasses import replace as dc_replace
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
+from ..columnar import Batch
 from ..plan.nodes import (Aggregate, AggregationNode, AssignUniqueIdNode,
                           FilterNode, LimitNode, MarkDistinctNode,
                           OffsetNode, PlanNode, ProjectNode,
-                          SampleNode, SortKey,
+                          RemoteSourceNode, SampleNode, SortKey,
                           SortNode, TopNNode, WindowFunction, WindowNode)
 from ..rex import (VOLATILE_FNS, Call, CaseExpr, Cast, Const, InputRef,
                    Lambda, RowExpr)
@@ -188,6 +193,32 @@ def node_fingerprint(nd: PlanNode) -> Optional[tuple]:
     return None
 
 
+class Binding:
+    """Per-plan rename shim around one canonical program: input columns
+    to canonical names before the call, canonical output names back to
+    this plan's after it. Columns the chain never references
+    (pass-through lanes under a filter) extend the map in sorted
+    original-name order, so every split of one scan binds alike."""
+
+    __slots__ = ("fwd", "inv")
+
+    def __init__(self, mapping: Dict[str, str],
+                 columns: Sequence[str]) -> None:
+        self.fwd = dict(mapping)
+        for name in sorted(c for c in columns if c not in self.fwd):
+            self.fwd[name] = f"x{len(self.fwd)}"
+        self.inv = {v: k for k, v in self.fwd.items()}
+
+    def rename_in(self, b: Batch) -> Batch:
+        cols = sorted(b.columns, key=lambda c: self.fwd[c])
+        return Batch({self.fwd[c]: b.columns[c] for c in cols},
+                     b.num_rows)
+
+    def rename_out(self, b: Batch) -> Batch:
+        return Batch({self.inv.get(s, s): c
+                      for s, c in b.columns.items()}, b.num_rows)
+
+
 class CanonicalProgram:
     """A canonicalized node stack (top-down order), its key and the
     plan's symbol map."""
@@ -199,6 +230,32 @@ class CanonicalProgram:
         self.key = key
         self.nodes = nodes          # top-down
         self.mapping = mapping      # original symbol -> canonical
+
+    def binding(self, b: Batch) -> Binding:
+        return Binding(self.mapping, list(b.columns))
+
+    def wire_fragment(self, input_schema: Dict[str, object]) -> dict:
+        """The canonical stack as a plan fragment rooted in its top node
+        over a schema-carrying RemoteSourceNode leaf (plan/serde.py): the
+        hot-shape registry's transport form, which a pre-warming worker
+        decodes back into the nodes it runs (exec/aot.py)."""
+        from ..plan.serde import to_jsonable
+        body: PlanNode = RemoteSourceNode((), dict(input_schema),
+                                          "gather")
+        for nd in reversed(self.nodes):
+            body = dc_replace(nd, source=body)
+        return to_jsonable(body)
+
+
+def peel_wire_fragment(root: PlanNode) -> Tuple[List[PlanNode], Dict]:
+    """Inverse of ``wire_fragment``: (top-down node stack, input schema)
+    from a decoded fragment."""
+    nodes: List[PlanNode] = []
+    nd = root
+    while not isinstance(nd, RemoteSourceNode):
+        nodes.append(nd)
+        nd = nd.source
+    return nodes, dict(nd.schema)
 
 
 def canonicalize_nodes(nodes_top_down: Sequence[PlanNode]

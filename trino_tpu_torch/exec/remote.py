@@ -896,6 +896,12 @@ class RemoteScheduler:
                     from .learnedstats import LEARNED_STATS
                     LEARNED_STATS.merge(status.get("learnedStats")
                                         or [])
+                    # so do its program shapes, into the hot-shape
+                    # registry (exec/hotshapes.py): dispatched fragments
+                    # become pre-warmable though the coordinator never
+                    # ran them
+                    from .hotshapes import HOT_SHAPES
+                    HOT_SHAPES.merge(status.get("hotShapes") or [])
                     reported = [NodeStats.from_dict(d) for d in
                                 status.get("nodeStats") or []]
                     if reported:

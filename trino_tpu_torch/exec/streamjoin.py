@@ -449,10 +449,19 @@ def maybe_stream_chain(ex, node: PlanNode) -> Optional[Batch]:
         f"(chunk capacity {chunk_cap})")
     run = make_chain_runner(ex, chain)
     from .executor import device_concat
+    from .progkey import canonicalize_nodes
+    canon = canonicalize_nodes(chain)
+
+    def dispatch(chunk: Batch, i: int) -> Batch:
+        if i == 0 and canon is not None:
+            # the chunk program's shape (exec/hotshapes.py)
+            from .hotshapes import record_canonical
+            record_canonical("chain", canon, chunk, ex.session)
+        return run(chunk)
+
     outs: List[Batch] = []
     run_streamed(ex, "chain", host_scan_chunks(ex, scan, chunk_cap),
-                 lambda chunk, i: run(chunk),
-                 lambda out, i: _spill(ex, out, outs))
+                 dispatch, lambda out, i: _spill(ex, out, outs))
     if not outs:
         return _empty_host(_empty_batch(chain[0].output_schema(),
                                         ex.device))
@@ -675,6 +684,16 @@ def maybe_stream_join(ex, node: JoinNode
     def dispatch(chunk: Batch, i: int):
         b = enc.encode(chain_run(chunk))
         out_cap = max(b.capacity, state["floor"])
+        if i == 0:
+            # the probe chunk program's shape (exec/hotshapes.py)
+            from .hotshapes import join_key, join_payload, record_program
+            record_program(
+                "streamjoin", join_key("streamjoin", jt, node.criteria,
+                                       residual, b, build, out_cap),
+                None, None, ex.session,
+                payload_fn=lambda: join_payload(jt, node.criteria,
+                                                residual, b, build, out_cap,
+                                                "streamjoin"))
         out, total = run_chunk(b, out_cap)
         return b, out, total, out_cap
 

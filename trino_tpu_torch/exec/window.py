@@ -329,6 +329,20 @@ def _identity(kind: str, dtype: torch.dtype):
     return info.max if kind == "min" else info.min
 
 
+# the kinds whose explicit frame the default paths still evaluate
+_PRE_FRAME_KINDS = frozenset((
+    "row_number", "rank", "dense_rank", "percent_rank", "cume_dist",
+    "ntile", "lag", "lead"))
+
+
+def window_recordable(node: WindowNode) -> bool:
+    """The JAX package's ``window_traceable``, the gate of its window
+    program cache and of the window's hot shape: no function with an
+    explicit frame outside the ranking and offset kinds."""
+    return not any(_explicit_frame(f) and f.kind not in _PRE_FRAME_KINDS
+                   for f in node.functions.values())
+
+
 def _explicit_frame(fn) -> bool:
     """True when the function carries a frame the default running /
     whole-partition paths cannot express: offset bounds, GROUPS unit, or

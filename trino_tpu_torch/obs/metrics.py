@@ -362,6 +362,18 @@ EXCHANGE_PARTITION_BYTES = METRICS.counter(
     "trino_tpu_exchange_partition_bytes_total",
     "Serialized partitioned-exchange bytes by direction", ("direction",))
 
+# the stage DAG on the device mesh (stage/ici.py): bytes and edges of the
+# stage boundaries lowered to copies between the mesh's shard devices,
+# beside the spool/HTTP leg's trino_tpu_exchange_partition_bytes_total
+EXCHANGE_ICI_BYTES = METRICS.counter(
+    "trino_tpu_exchange_ici_bytes_total",
+    "Bytes exchanged at in-slice (device collective) stage boundaries",
+    ("kind",))
+EXCHANGE_ICI_EDGES = METRICS.counter(
+    "trino_tpu_exchange_ici_edges_total",
+    "Stage-boundary exchanges lowered to in-slice device collectives",
+    ("kind",))
+
 STAGES_SCHEDULED = METRICS.counter(
     "trino_tpu_stages_scheduled_total",
     "Worker stages dispatched by the stage-DAG scheduler")

@@ -122,3 +122,10 @@ def combine_hashes(hashes: Sequence[torch.Tensor]) -> torch.Tensor:
     for h in hashes:
         acc = acc * 31 + h
     return mix64(acc)
+
+
+def hash_columns(cols) -> torch.Tensor:
+    """Hash a list of Columns into one u64 lane (int64 carrier): each
+    column's value lane (a string column's dictionary codes) hashed and
+    combined, NULL hashing to 0, as the JAX package's ``hash_columns``."""
+    return combine_hashes([hash_column(c.data, c.valid) for c in cols])

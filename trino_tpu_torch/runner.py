@@ -96,6 +96,8 @@ class QueryResult:
     stream_copy_ms: float = 0.0
     stream_wait_ms: float = 0.0
     stream_ops: Dict[str, int] = field(default_factory=dict)
+    # on a mesh (exec/distributed.py): each sharded scan's rows per shard
+    shard_rows: List[List[int]] = field(default_factory=list)
     # telemetry (/v1/query, EXPLAIN ANALYZE, the query history): the
     # NodeStats list, the plan that ran, the span tree and the plan's
     # canonical key (exec/learnedstats.py)
@@ -117,13 +119,25 @@ class QueryResult:
 
 
 class LocalQueryRunner:
-    """Runs SQL in this process on one torch device."""
+    """Runs SQL in this process on one torch device or, with
+    ``distributed=True``, over a mesh of ``n_devices`` shards
+    (parallel/mesh.py: one shard per visible card by default, shards on
+    the CPU with ``device="cpu"``), or over the ``mesh`` given."""
 
     def __init__(self, session: Optional[Session] = None,
                  device: DeviceLike = None,
                  catalogs: Optional[CatalogManager] = None,
-                 collect_node_stats: bool = False):
-        self.device = resolve_device(device)
+                 collect_node_stats: bool = False,
+                 distributed: bool = False,
+                 n_devices: Optional[int] = None, mesh=None):
+        self.mesh = mesh
+        if mesh is not None:
+            self.device = mesh.home
+        else:
+            self.device = resolve_device(device)
+            if distributed:
+                from .parallel.mesh import get_mesh
+                self.mesh = get_mesh(n_devices, self.device)
         self.collect_node_stats = collect_node_stats
         if catalogs is not None:
             self.catalogs = catalogs
@@ -252,11 +266,18 @@ class LocalQueryRunner:
         plan = self._plan(stmt)
         trace = self.session.trace
         sp = trace.span if trace is not None else null_span
-        ex = Executor(self.catalogs, self.session, self.device,
-                      collect_stats)
+        ex = self._make_executor(collect_stats)
         with sp("execute"):
             batch = ex.execute(plan)
         return plan, ex, batch
+
+    def _make_executor(self, collect_stats: bool = False) -> Executor:
+        if self.mesh is not None:
+            from .exec.distributed import DistributedExecutor
+            return DistributedExecutor(self.catalogs, self.session,
+                                       self.mesh, collect_stats)
+        return Executor(self.catalogs, self.session, self.device,
+                        collect_stats)
 
     def _run_query(self, stmt: A.QueryStatement,
                    collect_stats: Optional[bool] = None) -> QueryResult:
@@ -275,6 +296,8 @@ class LocalQueryRunner:
                            stream_copy_ms=ex.stream_copy_ms,
                            stream_wait_ms=ex.stream_wait_ms,
                            stream_ops=dict(ex.stream_ops),
+                           shard_rows=list(getattr(ex, "scan_shard_rows",
+                                                   [])),
                            plan_lines=plan_tree_lines(plan))
         if collect_stats:
             result.stats = ex.stats
@@ -465,9 +488,13 @@ class LocalQueryRunner:
 
     def _stmt_ExecuteStmt(self, stmt, sql) -> QueryResult:
         prep = self._prepared(stmt.name)
+        # each USING value binds as its own expression, so that its type
+        # stays (a DATE literal stays a DATE, not its day number); the
+        # planner checks here that it is a constant
         planner = LogicalPlanner(self.catalogs, self.session)
-        values = [A.Literal(planner._const_expr(p).value)
-                  for p in stmt.params]
+        for p in stmt.params:
+            planner._const_expr(p)
+        values = list(stmt.params)
         try:
             bound, used = A.replace_parameters(prep, values)
         except ValueError as e:

@@ -560,9 +560,12 @@ class Coordinator:
     port; ``base_uri`` mirrors server/Server.java's announcement.
     Queries run on ``device`` (``cuda`` unless the caller passes
     ``"cpu"``; an error without a card): the whole query on a single
-    node, the root stage when workers are live. ``scan_cache_bytes``, when
-    given, is the process's scan-cache budget while it serves
-    (``scan-cache.max-size`` in etc/config.properties)."""
+    node, the root stage when workers are live; with ``distributed=True``
+    a query without workers runs over the device mesh (one shard per
+    visible card; one CPU shard with ``device="cpu"``).
+    ``scan_cache_bytes``, when given, is the process's
+    scan-cache budget while it serves (``scan-cache.max-size`` in
+    etc/config.properties)."""
 
     def __init__(self, port: int = 0, distributed: bool = False,
                  catalogs=None, resource_groups=None,
@@ -574,9 +577,6 @@ class Coordinator:
                  scan_cache_bytes: Optional[int] = None,
                  device: DeviceLike = None):
         from .events import EventListenerManager
-        if distributed:
-            raise NotImplementedError(
-                "not yet ported: distributed=True (the device mesh)")
         self.device = resolve_device(device)
         self.node_id = f"coordinator-{uuid.uuid4().hex[:8]}"
         self.started = time.time()
@@ -587,8 +587,8 @@ class Coordinator:
         # remove_worker), under one lock.
         self.workers = [str(w).rstrip("/") for w in (worker_uris or [])]
         self._members_lock = threading.Lock()
-        # the pre-warm readiness each worker announces (workers of the
-        # port announce none; boot-configured ones count as warm)
+        # the pre-warm readiness each worker announces (exec/hotshapes.py;
+        # boot-configured workers count as warm)
         self.worker_prewarmed: Dict[str, bool] = {
             w: True for w in self.workers}
         # fault-tolerant execution (fte/): one failure detector and one
@@ -626,9 +626,11 @@ class Coordinator:
             # the server spool, like results
             self.manifests = ExecutionManifestStore(self.spool)
 
-        # one shared CatalogManager: memory-connector state spans queries
+        # one shared CatalogManager (memory-connector state spans
+        # queries) and one shared mesh
         self._proto = LocalQueryRunner(catalogs=catalogs,
-                                       device=self.device)
+                                       device=self.device,
+                                       distributed=distributed)
         self._catalogs = self._proto.catalogs
         # the system catalog, backed by this coordinator
         from ..connectors.system import SystemConnector
@@ -691,6 +693,7 @@ class Coordinator:
             return wrap(LocalQueryRunner(session=session,
                                          device=self.device,
                                          catalogs=self._catalogs,
+                                         mesh=self._proto.mesh,
                                          collect_node_stats=True))
 
         events = EventListenerManager()
@@ -1448,11 +1451,6 @@ def _make_handler(co: Coordinator):
             self.end_headers()
             self.wfile.write(body)
 
-        def _not_ported(self, what: str):
-            # a request body may be unread: close the connection
-            self.close_connection = True
-            self._send(501, {"error": f"not yet ported: {what}"})
-
         def _send_html(self, body: str):
             raw = body.encode()
             self.send_response(200)
@@ -1660,7 +1658,23 @@ def _make_handler(co: Coordinator):
                     for w in list(co.workers)]})
                 return
             if path == "/v1/hotshapes":
-                self._not_ported("/v1/hotshapes (the worker pre-warm feed)")
+                # the worker pre-warm feed (exec/hotshapes.py): the top-k
+                # hottest program shapes this coordinator has seen,
+                # ranked by hit count then recency; ?k= bounds the list
+                # (default: the hot_shape_top_k session default, the K a
+                # joining worker warms before taking traffic)
+                from urllib.parse import parse_qs
+                from ..exec.hotshapes import HOT_SHAPES
+                from ..session import SESSION_PROPERTIES
+                qs = parse_qs(urlparse(self.path).query)
+                try:
+                    k = int((qs.get("k") or [0])[0])
+                except ValueError:
+                    k = 0
+                if k <= 0:
+                    k = int(SESSION_PROPERTIES["hot_shape_top_k"][1])
+                self._send(200, {"shapes": HOT_SHAPES.top(k),
+                                 "tracked": len(HOT_SHAPES)})
                 return
             if path == "/v1/history":
                 # the durable query-history surface (obs/history.py):

@@ -86,7 +86,8 @@ def _etc_properties(etc_dir: Optional[str]) -> Dict[str, str]:
 def coordinator_from_etc(etc_dir: Optional[str], device="cuda",
                          port: Optional[int] = None,
                          spool_backend: Optional[str] = None,
-                         workers: Optional[str] = None):
+                         workers: Optional[str] = None,
+                         distributed: bool = False):
     """The Coordinator (not yet started) that ``etc_dir`` describes:
     config.properties and catalog/*.properties; ``port``,
     ``spool_backend`` and ``workers`` (comma-separated base URIs) beat
@@ -132,7 +133,7 @@ def coordinator_from_etc(etc_dir: Optional[str], device="cuda",
     scan_cache_bytes = None
     if props.get("scan-cache.max-size"):
         scan_cache_bytes = parse_data_size(props["scan-cache.max-size"])
-    return Coordinator(port=port,
+    return Coordinator(port=port, distributed=distributed,
                        catalogs=build_catalogs(etc_dir, plugins, device),
                        resource_groups=resource_groups,
                        authenticator=authenticator,
@@ -149,6 +150,9 @@ def main(argv=None) -> int:
                     help="config directory (config.properties + "
                          "catalog/*.properties)")
     ap.add_argument("--port", type=int, default=None)
+    ap.add_argument("--distributed", action="store_true",
+                    help="[coordinator] run queries over the device mesh "
+                         "(one shard per visible card)")
     ap.add_argument("--device", default="cuda",
                     help="torch device the queries run on: cuda "
                          "(default) or cpu")
@@ -175,6 +179,13 @@ def main(argv=None) -> int:
                          "announcement; also discovery.token in "
                          "config.properties / env "
                          "TRINO_TPU_COORDINATOR_TOKEN")
+    ap.add_argument("--prewarm-top-k", type=int, default=None,
+                    help="[worker] how many of the coordinator's hot "
+                         "shapes to warm before announcing this worker "
+                         "warm (GET /v1/hotshapes, exec/aot.py); default "
+                         "env TRINO_TPU_PREWARM_TOP_K or prewarm.top-k; "
+                         "the warm-up is off with TRINO_TPU_PREWARM=0 or "
+                         "prewarm.enabled=false")
     ap.add_argument("--task-runners", type=int, default=None,
                     help="[worker] runner slots of the shared split "
                          "scheduler (0 = max(4, 2 x cores)); also "
@@ -186,7 +197,8 @@ def main(argv=None) -> int:
     if (args.role or props.get("node.role", "coordinator")) == "worker":
         return _worker_main(args, props)
     co = coordinator_from_etc(args.etc_dir, args.device, args.port,
-                              args.spool_backend, args.workers).start()
+                              args.spool_backend, args.workers,
+                              args.distributed).start()
     if co.workers and co.failure_detector is not None:
         # a configured fleet gets the heartbeat loop on top of the
         # schedulers' task-failure feedback
@@ -250,11 +262,21 @@ def _worker_main(args, props: Dict[str, str]) -> int:
     token = (args.coordinator_token or props.get("discovery.token")
              or os.environ.get("TRINO_TPU_COORDINATOR_TOKEN") or None)
     if coordinator_uri:
-        joined = srv.announce(coordinator_uri, token=token)
+        from ..config import CONFIG
+        prewarm = CONFIG.prewarm_enabled
+        if props.get("prewarm.enabled", "").lower() in ("false", "0"):
+            prewarm = False
+        top_k = args.prewarm_top_k
+        if top_k is None and props.get("prewarm.top-k"):
+            top_k = int(props["prewarm.top-k"])
+        joined = srv.announce(coordinator_uri, token=token,
+                              prewarm=prewarm, prewarm_top_k=top_k)
         print(f"trino-tpu-torch worker {srv.node_id} on {srv.device} "
               f"listening on {srv.base_uri} "
               f"({'joined' if joined else 'announcing to'} "
-              f"{coordinator_uri})", flush=True)
+              f"{coordinator_uri}"
+              + (", pre-warming hot shapes" if prewarm else "") + ")",
+              flush=True)
     else:
         print(f"trino-tpu-torch worker {srv.node_id} on {srv.device} "
               f"listening on {srv.base_uri} (standalone: pass "

@@ -15,16 +15,18 @@ and peak memory), /metrics the worker's registry, /v1/info its liveness;
 producers may POST /v1/ingest/{topic} to any worker (streaming/log.py).
 Each task's memory context counts the bytes its executor reserves and,
 on a card, the bytes the card holds beyond those it held when the task
-began; the status beats carry them to the coordinator's pool.
-
-Not yet ported (an error with that message): the hot-shape pre-warm
-(``prewarm_from``).
+began; the status beats carry them to the coordinator's pool. A task's
+status also carries the program shapes it recorded (``hotShapes``,
+exec/hotshapes.py), and a worker that announces itself with ``prewarm``
+warms the coordinator's hottest shapes first (``prewarm_from``,
+exec/aot.py) and then announces ``prewarmed``.
 """
 
 from __future__ import annotations
 
 import json
 import threading
+import time
 import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional
@@ -182,6 +184,10 @@ class _Task:
         # by the fragment's canonical plan key — the coordinator's
         # registry merges these from the status beat (origin-deduped)
         self.learned_stats: List[dict] = []
+        # program shapes this task recorded (exec/hotshapes.py delta):
+        # they ride back in the task status, so the coordinator's
+        # registry covers every dispatched fragment's shapes
+        self.hot_shapes: List[dict] = []
         self.peak_memory_bytes = 0
         self.spill_bytes = 0
         # morsel streaming (exec/streamjoin.py): chunk count + h2d
@@ -209,7 +215,9 @@ class _Task:
 
     def run(self, payload: dict):
         import time as _time
+        from ..exec.hotshapes import HOT_SHAPES
         from ..exec.learnedstats import LEARNED_STATS
+        shapes_before = HOT_SHAPES.hit_counts()
         lstats_before = LEARNED_STATS.seq()
         handle = None
         cpu0 = _time.thread_time()
@@ -423,6 +431,7 @@ class _Task:
                 # its own (shared-process workers) without losing a
                 # remote worker's genuine observations
                 self.learned_stats = LEARNED_STATS.export_delta(lstats_before)  # tt-lint: ignore[race-attr-write] task-thread-private until done.set() publishes
+                self.hot_shapes = HOT_SHAPES.export_delta(shapes_before)  # tt-lint: ignore[race-attr-write] task-thread-private until done.set() publishes
             except Exception:    # noqa: BLE001
                 pass
             _M_TASKS.inc(state=self.state)
@@ -704,6 +713,7 @@ class TaskWorkerServer:
                          "nodeStats": t.node_stats,
                          "spans": t.spans,
                          "learnedStats": t.learned_stats,
+                         "hotShapes": t.hot_shapes,
                          "peakMemoryBytes": t.peak_memory_bytes,
                          "liveMemoryBytes": t.live_memory_bytes,
                          "spillBytes": t.spill_bytes,
@@ -781,6 +791,13 @@ class TaskWorkerServer:
         # re-leaves — a phantom member until the failure detector
         # notices)
         self._announce_lock = threading.Lock()
+        # the pre-warm (exec/aot.py): a joining worker pulls the
+        # coordinator's hot shapes and warms the top-K on a background
+        # thread; ``prewarm_ready`` rides every announce payload, under
+        # a lock against the announce loop reading it mid-flip
+        self._prewarm_lock = threading.Lock()
+        self.prewarm_ready = False
+        self.prewarm_summary: Optional[dict] = None
         import uuid as _uuid
         self.node_id = f"worker-{_uuid.uuid4().hex[:8]}"
 
@@ -900,14 +917,42 @@ class TaskWorkerServer:
             _M_TASKS_ABORTED.inc()
 
     # -- membership ---------------------------------------------------
+    def _is_prewarmed(self) -> bool:
+        with self._prewarm_lock:
+            return self.prewarm_ready
+
     def prewarm_from(self, coordinator_uri: str,
                      top_k: Optional[int] = None,
                      token: Optional[str] = None) -> dict:
-        """The JAX package's workers compile the coordinator's hottest
-        program shapes ahead of time (exec/hotshapes.py, exec/aot.py);
-        the port has no such programs yet."""
-        raise NotImplementedError(
-            "not yet ported: prewarm_from (the hot-shape pre-warm)")
+        """Pull the coordinator's hot-shape list and warm it on this
+        worker's device (exec/aot.py): the announce hook that turns a
+        cold joiner warm before its first fragment arrives. Sets
+        ``prewarm_ready`` even when the list is empty or a shape fails:
+        readiness means "the warm-up ran", not "every shape warmed" (a
+        coordinator with no history must not leave its fleet
+        cold-flagged forever)."""
+        from ..config import CONFIG
+        from ..exec import aot
+        k = CONFIG.prewarm_top_k if top_k is None else int(top_k)
+        shapes = []
+        try:
+            req = urllib.request.Request(
+                f"{coordinator_uri.rstrip('/')}/v1/hotshapes?k={k}")
+            if token:
+                req.add_header("Authorization", f"Bearer {token}")
+            with urllib.request.urlopen(req, timeout=10) as r:
+                shapes = json.loads(r.read()).get("shapes") or []
+        except Exception:       # noqa: BLE001 — an unreachable or older
+            # coordinator gives an empty warm-up, not a dead worker
+            shapes = []
+        t0 = time.perf_counter()
+        summary = aot.compile_entries(shapes, self.device)
+        summary["pulled"] = len(shapes)
+        summary["seconds"] = time.perf_counter() - t0
+        with self._prewarm_lock:
+            self.prewarm_ready = True
+            self.prewarm_summary = summary
+        return summary
 
     def announce(self, coordinator_uri: str,
                  interval_s: float = 10.0,
@@ -920,20 +965,23 @@ class TaskWorkerServer:
         at the next beat). ``token`` rides as a Bearer credential on
         every announce/leave — required when the coordinator runs an
         authenticator, whose gate sits in front of /v1/announcement
-        like every other resource. ``prewarm`` asks for the hot-shape
-        warm-up, which is not yet ported. Returns whether the first
-        announce landed. Safe to
-        call repeatedly (e.g. re-pointing the worker at a new
-        coordinator, or after stop()): each call retires the previous
-        announcer loop via its own stop event, so exactly one loop
-        ever beats."""
+        like every other resource. ``prewarm`` (default: config
+        TRINO_TPU_PREWARM) starts the hot-shape warm-up on a background
+        thread after the first announce; the readiness flag rides every
+        announce payload, and the moment the warm-up finishes an extra
+        beat pushes it to the coordinator. Returns whether the first
+        announce landed. Safe to call repeatedly (e.g. re-pointing the
+        worker at a new coordinator, or after stop()): each call retires
+        the previous announcer loop via its own stop event, so exactly
+        one loop ever beats."""
+        from ..config import CONFIG
         self._announce_stop.set()       # retire any previous announcer
         stop = self._announce_stop = threading.Event()
         self._announced_to = coordinator_uri.rstrip("/")
         self._announce_token = token
         ok = announce_once(self._announced_to, self.base_uri,
                            self.node_id, token=token,
-                           prewarmed=False)
+                           prewarmed=self._is_prewarmed())
 
         def loop():
             while not stop.wait(interval_s):
@@ -944,7 +992,7 @@ class TaskWorkerServer:
                         announce_once(self._announced_to,
                                       self.base_uri, self.node_id,
                                       token=self._announce_token,
-                                      prewarmed=False)
+                                      prewarmed=self._is_prewarmed())
                 except Exception:       # noqa: BLE001 — next beat
                     pass
 
@@ -952,9 +1000,27 @@ class TaskWorkerServer:
                                                  daemon=True)
         self._announce_thread.start()
 
-        if prewarm:
-            self.prewarm_from(self._announced_to, top_k=prewarm_top_k,
-                              token=token)
+        if prewarm is None:
+            prewarm = CONFIG.prewarm_enabled
+        if prewarm and not self._is_prewarmed():
+            uri, tok = self._announced_to, token
+
+            def warmup():
+                try:
+                    self.prewarm_from(uri, top_k=prewarm_top_k, token=tok)
+                except Exception:       # noqa: BLE001 — a failed warm-up
+                    # leaves the worker cold-flagged but serving
+                    return
+                try:            # the readiness beat, ahead of the cadence
+                    with self._announce_lock:
+                        if not stop.is_set():
+                            announce_once(uri, self.base_uri,
+                                          self.node_id, token=tok,
+                                          prewarmed=True)
+                except Exception:       # noqa: BLE001
+                    pass
+
+            threading.Thread(target=warmup, daemon=True).start()
         return ok
 
     # -- lifecycle ----------------------------------------------------

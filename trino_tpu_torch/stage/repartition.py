@@ -58,6 +58,13 @@ def partition_buckets(batch: Batch, keys: Sequence[str],
     """Bucket in [0, nparts) of each live row, as an int64 tensor on the
     batch's device."""
     n = batch.num_rows_host()
+    from ..exec.hotshapes import record_program
+    cap = int(batch.capacity)
+    record_program(
+        "repartition", ("repartition", len(keys), cap, int(nparts)), None,
+        None, session,
+        payload_fn=lambda: {"kind": "repartition", "nkeys": len(keys),
+                            "capacity": cap, "nparts": int(nparts)})
     hashed = []
     for k in keys:
         c = batch.column(k)

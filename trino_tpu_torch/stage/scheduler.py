@@ -460,6 +460,10 @@ class StageExecution:
                 # registry (exec/learnedstats.py), origin-deduped
                 from ..exec.learnedstats import LEARNED_STATS
                 LEARNED_STATS.merge(status.get("learnedStats") or [])
+                # and the worker's program shapes into the hot-shape
+                # registry (exec/hotshapes.py), origin-deduped alike
+                from ..exec.hotshapes import HOT_SHAPES
+                HOT_SHAPES.merge(status.get("hotShapes") or [])
                 cpu_s = float(status.get("cpuSeconds") or 0.0)
                 with s._stats_lock:
                     # morsel-streaming rollup: stage tasks report
