@@ -123,6 +123,29 @@ its wall printed, its rows the q1 phase's.
 
 runs only the q1, q3, q6 and q12 phases, ``mesh_sf10``,
 ``prewarm_sf10`` and the kernel phase.
+
+``ragged_sf10`` (after ``prewarm_sf10``) is a dashboard refreshing its
+tiles: sixteen point lookups on tpch.sf10 orders (generated on the
+card) spread over the key range, and one key in a gap of the key
+sequence, each carrying varchar, date and DECIMAL(24,4) lanes. After a
+warm-up pass that brings each lookup's constrained scan into the scan
+cache, five modes of three storms each: solo one after another, then
+each lookup on its own thread behind a barrier with ragged batching off,
+on at the default 3 ms window, on at a 50 ms window, and sixteen clients
+at once through one port Coordinator() with ragged_batching=true. Every
+mode's rows must equal the solo rows, which must equal a numpy reference
+of those orders; the 50 ms window must serve every non-empty lookup in
+a batch of two or more; no batch may fail or time out; the
+coordinator's /metrics must carry every family the port took over from
+the reference with the ragged batcher. It prints each storm's wall and
+its lookups' p50 and max, batches, fragments served, batch sizes and
+fallbacks by reason (the port's own metric families), and each mode's
+peak device memory.
+
+    python3 chip_smoke.py --ragged-only
+
+runs only the q1 phase (whose launches give the kernel phase its
+shapes), ``ragged_sf10`` and the kernel phase.
 Every phase prints its wall (``wall``), and ``walls`` lists them.
 The kernel's lines (trino_tpu_torch/bench_grouped_sums.py) time each
 call four ways: ``ms`` back to back as a caller sees it, ``device_ms``
@@ -4022,6 +4045,246 @@ def phase_prewarm(queries, want):
     emit("prewarm_sf10", schema=f"tpch.{SCHEMA}", walls_s=walls, **fields)
 
 
+RAGGED_SCHEMA = "sf10"
+RAGGED_LOOKUPS = 16             # distinct keys spread over the key range
+RAGGED_STORMS = 3               # storms a mode
+RAGGED_WIDE_WINDOW_S = 0.05     # mode 4's formation window
+RAGGED_SQL = ("SELECT o_orderkey, o_orderstatus, o_orderpriority, "
+              "o_orderdate, CAST(o_totalprice AS DECIMAL(12,2)) * "
+              "CAST(o_totalprice AS DECIMAL(12,2)) AS sq FROM orders "
+              "WHERE o_orderkey = {k}")
+RAGGED_COLS = ["o_orderkey", "o_orderstatus", "o_orderpriority",
+               "o_orderdate", "o_totalprice"]
+# the families /metrics carries since the ragged slice
+SLICE_FAMILIES = (
+    "trino_tpu_splits_read_total", "trino_tpu_spill_bytes_total",
+    "trino_tpu_scan_cache_bytes", "trino_tpu_stream_chunks_total",
+    "trino_tpu_stream_bytes_h2d_total",
+    "trino_tpu_stream_transfers_overlapped_total",
+    "trino_tpu_ragged_batch_batches_total",
+    "trino_tpu_ragged_batch_queries_total",
+    "trino_tpu_ragged_batch_rows_total",
+    "trino_tpu_ragged_batch_fallbacks_total", "trino_tpu_ragged_batch_size")
+FALLBACK_REASONS = ("solo_window", "capacity", "error", "timeout")
+
+
+def ragged_keys(tpch_mod, schema: str):
+    """The lookups' order indices (1-based) and keys, and a key in a gap
+    of the key sequence (8 keys are used out of every 32)."""
+    sf = tpch_mod.SCHEMAS[schema]
+    n = tpch_mod.table_rows("orders", sf)
+    idx = np.linspace(1, n, RAGGED_LOOKUPS).astype(np.int64)
+    keys = [int(k) for k in tpch_mod._order_key(idx)]
+    gap = keys[RAGGED_LOOKUPS // 2] | 16
+    return idx, keys, gap
+
+
+def ragged_reference(tpch_mod, schema: str, idx) -> list:
+    """Each lookup's row from the numpy generator: ints, strings and
+    dates exact, the product exact in Python ints from the cents."""
+    import decimal
+    host = tpch_mod.TpchConnector(device="cpu")
+    b = host._orders(idx, tpch_mod.SCHEMAS[schema], RAGGED_COLS)
+
+    def lane(name):
+        c = b.column(name)
+        v = c.data[:len(idx)].numpy()
+        return c.dictionary.values[v] if c.dictionary is not None else v
+    key, status, prio, odate, price = (lane(c) for c in RAGGED_COLS)
+    epoch = datetime.date(1970, 1, 1)
+    rows = []
+    for i in range(len(idx)):
+        cents = int(decimal.Decimal(repr(float(price[i]))).scaleb(2))
+        rows.append([[int(key[i]), str(status[i]), str(prio[i]),
+                      epoch + datetime.timedelta(days=int(odate[i])),
+                      decimal.Decimal(cents * cents).scaleb(-4)]])
+    return rows
+
+
+def ragged_counters() -> dict:
+    """The port's ragged families as they stand."""
+    from trino_tpu_torch.exec import taskexec as te
+    buckets, count, _ = te.RAGGED_BATCH_SIZE.snapshot()
+    return {"batches": te.RAGGED_BATCHES.value(),
+            "served": te.RAGGED_QUERIES.value(),
+            "rows": te.RAGGED_ROWS.value(),
+            "size_le": dict(zip(te.RAGGED_BATCH_SIZE.buckets, buckets)),
+            "fallbacks": {r: te.RAGGED_FALLBACKS.value(reason=r)
+                          for r in FALLBACK_REASONS}}
+
+
+def ragged_delta(before: dict, after: dict) -> dict:
+    """Batches formed, fragments served, live rows, batch sizes (bucket
+    upper bounds, from the histogram) and fallbacks by reason."""
+    out = {k: int(after[k] - before[k]) for k in ("batches", "served",
+                                                   "rows")}
+    prev, sizes = 0, {}
+    for le, c in after["size_le"].items():
+        n = int(c - before["size_le"][le])
+        if n - prev:
+            sizes[f"<={le:g}"] = n - prev
+        prev = n
+    out["sizes"] = sizes
+    out["fallbacks"] = {r: int(after["fallbacks"][r] - before["fallbacks"][r])
+                        for r in FALLBACK_REASONS}
+    return out
+
+
+def ragged_storm(execute, sqls, concurrent: bool):
+    """Each lookup once: one after another, or each on its own thread,
+    released together by a barrier. (wall, rows, walls, ragged_batched)"""
+    import threading
+    n = len(sqls)
+    rows, walls, batched, errs = [None] * n, [0.0] * n, [0] * n, [None] * n
+
+    def run(i):
+        t0 = time.perf_counter()
+        try:
+            rows[i], batched[i] = execute(i, sqls[i])
+        except Exception as e:  # noqa: BLE001 — surfaced by the check
+            errs[i] = e
+        walls[i] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if concurrent:
+        barrier = threading.Barrier(n)
+
+        def after_barrier(i):
+            barrier.wait()
+            run(i)
+        threads = [threading.Thread(target=after_barrier, args=(i,))
+                   for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        check(not any(t.is_alive() for t in threads),
+              "ragged_sf10: a lookup thread did not finish")
+    else:
+        for i in range(n):
+            run(i)
+    wall = time.perf_counter() - t0
+    check(errs == [None] * n, f"ragged_sf10: lookups failed: {errs}")
+    return wall, rows, walls, batched
+
+
+def phase_ragged(runner_mod, session_mod, cuda_groupby, tpch_mod):
+    """A dashboard refreshing its tiles: concurrent point lookups on
+    tpch.sf10 orders (generated on the card), in five modes of three
+    storms each: solo one after another; concurrent with ragged batching
+    off; on at the default window; on at a 50 ms window; sixteen clients
+    at once through one port Coordinator() with ragged_batching=true.
+    Every mode's rows equal mode 1's, which equal numpy; mode 4 serves
+    every non-empty lookup in a batch of two or more; no batch fails or
+    times out; the coordinator's /metrics shows every family the ragged
+    slice brought."""
+    import urllib.request
+    from trino_tpu_torch.client import StatementClient
+    from trino_tpu_torch.config import CONFIG
+    from trino_tpu_torch.exec import taskexec as te
+    from trino_tpu_torch.server import Coordinator
+    idx, keys, gap = ragged_keys(tpch_mod, RAGGED_SCHEMA)
+    sqls = [RAGGED_SQL.format(k=k) for k in keys + [gap]]
+    want = ragged_reference(tpch_mod, RAGGED_SCHEMA, idx) + [[]]
+    catalogs = runner_mod.LocalQueryRunner(session_mod.Session(
+        catalog="tpch", schema=RAGGED_SCHEMA)).catalogs
+
+    def runner(ragged: bool):
+        s = session_mod.Session(catalog="tpch", schema=RAGGED_SCHEMA)
+        s.set("ragged_batching", ragged)
+        return runner_mod.LocalQueryRunner(s, catalogs=catalogs)
+
+    def local(ragged: bool):
+        runners = [runner(ragged) for _ in sqls]
+
+        def execute(i, sql):
+            res = runners[i].execute(sql)
+            return res.rows, res.ragged_batched
+        return execute
+    # the warm-up: each lookup's scan (its key includes the constraint)
+    # generated once into the scan cache
+    t0 = time.perf_counter()
+    warm = [runner(False).execute(sql).rows for sql in sqls]
+    warm_s = time.perf_counter() - t0
+    cuda_groupby.LAUNCHES = 0
+    start = ragged_counters()
+    modes, solo = {}, None
+    wide = te.RaggedBatcher(RAGGED_WIDE_WINDOW_S, CONFIG.ragged_batch_rows)
+    default = te.ragged_batcher()
+    co = Coordinator(catalogs=catalogs).start()
+    try:
+        check(co.device.type == "cuda", "the coordinator is not on cuda")
+
+        def remote(i, sql):
+            c = StatementClient(co.base_uri, schema=RAGGED_SCHEMA,
+                                session_properties={
+                                    "ragged_batching": "true"})
+            return c.execute(sql).rows, None
+        plans = [
+            ("solo", lambda: local(False), sqls, False, default),
+            ("concurrent_off", lambda: local(False), sqls, True, default),
+            ("ragged_default", lambda: local(True), sqls, True, default),
+            ("ragged_50ms", lambda: local(True), sqls, True, wide),
+            ("coordinator_16", lambda: remote, sqls[:RAGGED_LOOKUPS], True,
+             default)]
+        for name, make, mode_sqls, concurrent, batcher in plans:
+            te._RAGGED = batcher
+            before = ragged_counters()
+            torch.cuda.reset_peak_memory_stats()
+            storms, served = [], []
+            for _ in range(RAGGED_STORMS):
+                b0 = ragged_counters()
+                wall, rows, walls, batched = ragged_storm(
+                    make(), mode_sqls, concurrent)
+                served.append(ragged_delta(b0, ragged_counters())["served"])
+                if name == "solo":
+                    solo = solo or rows
+                    check(rows == want, "ragged_sf10: solo rows differ "
+                          "from the numpy reference")
+                    check(rows == warm, "ragged_sf10: solo rows differ "
+                          "from the warm-up's")
+                elif name == "coordinator_16":
+                    check(rows == [wire_rows(r) for r in
+                                   solo[:RAGGED_LOOKUPS]],
+                          "ragged_sf10: coordinator rows differ from solo")
+                else:
+                    check(rows == solo,
+                          f"ragged_sf10: {name} rows differ from solo")
+                if name == "ragged_50ms":
+                    check(batched == [1] * RAGGED_LOOKUPS + [0],
+                          f"ragged_sf10: 50 ms window served {batched}")
+                w = sorted(walls)
+                storms.append({"wall_s": wall,
+                               "p50_s": w[len(w) // 2], "max_s": w[-1],
+                               "ragged_batched": sum(b or 0
+                                                     for b in batched)})
+            modes[name] = {"storms": storms, "served_per_storm": served,
+                           **ragged_delta(before, ragged_counters()),
+                           "peak_gb": torch.cuda.max_memory_allocated()
+                           / 1e9}
+        # a member is served only by a batch of two or more
+        check(modes["ragged_50ms"]["served"]
+              == RAGGED_STORMS * RAGGED_LOOKUPS,
+              "ragged_sf10: the 50 ms window served "
+              f"{modes['ragged_50ms']['served']}")
+        with urllib.request.urlopen(co.base_uri + "/metrics",
+                                    timeout=30) as r:
+            scrape = r.read().decode()
+        missing = [f for f in SLICE_FAMILIES
+                   if f"# TYPE {f} " not in scrape]
+        check(not missing, f"ragged_sf10: /metrics lacks {missing}")
+    finally:
+        te._RAGGED = default
+        co.stop()
+    total = ragged_delta(start, ragged_counters())
+    check(total["fallbacks"]["error"] == 0
+          and total["fallbacks"]["timeout"] == 0,
+          f"ragged_sf10: fallbacks {total['fallbacks']}")
+    emit("ragged_sf10", schema=f"tpch.{RAGGED_SCHEMA}", keys=keys, gap=gap,
+         warm_up_s=warm_s, modes=modes, grouped_sums_launches=
+         cuda_groupby.LAUNCHES, rows_equal_numpy=True,
+         scrape_families=len(SLICE_FAMILIES))
+
+
 def walled(name: str, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, its wall time kept under ``name`` and
     printed."""
@@ -4035,15 +4298,16 @@ def walled(name: str, fn, *args, **kwargs):
 
 def main(argv) -> int:
     if argv not in ([], ["--server-only"], ["--cluster-only"],
-                    ["--stream-only"], ["--mesh-only"]):
+                    ["--stream-only"], ["--mesh-only"], ["--ragged-only"]):
         print("usage: python3 chip_smoke.py [--server-only | "
-              "--cluster-only | --stream-only | --mesh-only]",
-              file=sys.stderr)
+              "--cluster-only | --stream-only | --mesh-only | "
+              "--ragged-only]", file=sys.stderr)
         return 2
     server_only = argv == ["--server-only"]
     cluster_only = argv == ["--cluster-only"]
     stream_only = argv == ["--stream-only"]
     mesh_only = argv == ["--mesh-only"]
+    ragged_only = argv == ["--ragged-only"]
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -4075,6 +4339,15 @@ def main(argv) -> int:
             TPCH_QUERIES[1])
         walled("q1_check", phase_q1_check, rows, tpch_mod, device_mod, cold,
                warm, sf10_launches, peak, extra)
+        if ragged_only:
+            # q1 gives the kernel phase its shapes: the lookups' chains
+            # reach no kernel
+            free_device()
+            walled("ragged_sf10", phase_ragged, runner_mod, session_mod,
+                   cuda_groupby, tpch_mod)
+            kernels = walled("kernel", phase_kernel, cuda_groupby)
+            emit("walls", seconds=WALLS, total_s=time.perf_counter() - T0)
+            return report(card, kernels)
         walled("orders_gen", phase_orders_gen, tpch_mod, device_mod)
         runner = runner_mod.LocalQueryRunner(
             session_mod.Session(catalog="tpch", schema=SCHEMA))
@@ -4126,6 +4399,9 @@ def main(argv) -> int:
             free_device()
         if not server_only and not cluster_only:
             walled("prewarm_sf10", phase_prewarm, TPCH_QUERIES, server_want)
+            free_device()
+            walled("ragged_sf10", phase_ragged, runner_mod, session_mod,
+                   cuda_groupby, tpch_mod)
             free_device()
         if not server_only and not cluster_only:
             walled("stream_sf1", phase_stream, cuda_groupby, device_mod,

@@ -588,7 +588,7 @@ def test_pinned_chunk_is_held_until_its_copy_completes(cuda):
 
 
 @pytest.mark.gpu
-def test_overlap_is_measured_from_events(cuda):
+def test_overlap_is_measured_from_events(cuda, monkeypatch):
     """stream_overlapped counts the copies that had completed when the
     compute stream arrived at their chunk, from the loop's events: when
     each chunk keeps the compute stream busy for longer than a copy,
@@ -605,13 +605,31 @@ def test_overlap_is_measured_from_events(cuda):
     def idle(c, i):
         return None
 
+    # the caching allocator keeps a freed block for the stream that
+    # allocated it, and each loop's copier takes a stream of its own from
+    # torch's pool: with one copy stream for every loop here, the first
+    # loop's blocks serve the loop measured, and no allocation stalls the
+    # host inside it (a stall there made the idle loop's copies look
+    # hidden, or its waits short)
+    stream = torch.cuda.Stream(cuda)
+
+    class OneStreamCopier(sj.ChunkCopier):
+        def __init__(self, device):
+            super().__init__(device)
+            self.stream = stream
+
+    monkeypatch.setattr(sj, "ChunkCopier", OneStreamCopier)
+    from trino_tpu_torch.obs.metrics import STREAM_OVERLAPPED
     for dispatch, hidden in ((busy, len(chunks) - 1), (idle, 0)):
         # a first loop fills the allocator's cache, so that no device
         # allocation stalls the host in the loop measured
         for _ in range(2):
             ex = _LoopExecutor(cuda)
+            counted = STREAM_OVERLAPPED.value()
             sj.run_streamed(ex, "agg", iter(chunks), dispatch,
                             lambda out, i: None)
+        # the loop's count is what /metrics adds
+        assert STREAM_OVERLAPPED.value() - counted == ex.stream_overlapped
         assert ex.stream_overlapped == hidden
         assert ex.stream_copy_ms > 0
         if hidden:
@@ -1479,3 +1497,47 @@ def test_warmed_worker_first_query_builds_nothing(cuda, tmp_path):
         assert out.returncode == 0, out.stderr
     same, builds, launches = json.loads(out.stdout.strip().splitlines()[-1])
     assert same and builds == 1 and launches > 0
+
+
+@pytest.mark.gpu
+def test_ragged_lookups_cobatch_on_the_card(cuda, monkeypatch):
+    """Four threads' point lookups co-batch into one run of their chain
+    on the card (varchar, double and DECIMAL(24,4) lanes through the
+    concatenation and the demux), each equal to its solo run on the card
+    and on the CPU."""
+    import threading
+
+    import trino_tpu_torch.exec.taskexec as te
+    from trino_tpu_torch.session import Session
+    monkeypatch.setattr(te, "_RAGGED", te.RaggedBatcher(0.5, 1 << 20))
+    sqls = ["SELECT s_name, s_acctbal, CAST(s_acctbal AS DECIMAL(12,2)) * "
+            "CAST(s_acctbal AS DECIMAL(12,2)) AS sq FROM supplier "
+            f"WHERE s_suppkey = {k}" for k in (3, 17, 42, 58)]
+
+    def runner(device, ragged):
+        s = Session(catalog="tpch", schema="tiny")
+        s.set("ragged_batching", ragged)
+        return LocalQueryRunner(s, device=device)
+
+    solo = [runner(cuda, False).execute(q).rows for q in sqls]
+    assert solo == [runner("cpu", False).execute(q).rows for q in sqls]
+    served0 = te.RAGGED_QUERIES.value()
+    runners = [runner(cuda, True) for _ in sqls]
+    out = [None] * len(sqls)
+    barrier = threading.Barrier(len(sqls))
+
+    def run(i):
+        barrier.wait()
+        res = runners[i].execute(sqls[i])
+        out[i] = (res.rows, res.ragged_batched)
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(sqls))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+        assert not t.is_alive()
+    assert [o[0] for o in out] == solo
+    assert [o[1] for o in out] == [1] * len(sqls)
+    assert te.RAGGED_QUERIES.value() - served0 == len(sqls)

@@ -75,7 +75,13 @@ class EngineConfig:
     prewarm_enabled: bool = os.environ.get("TRINO_TPU_PREWARM",
                                            "1") == "1"
     stream_chunk_rows: int = 0
-    ragged_batch_rows: int = 1 << 16
+    # ragged multi-query batching (exec/taskexec.py RaggedBatcher): the
+    # cap on the combined live rows of co-batched fragments (the default
+    # of the ragged_batch_max_rows session property), and the formation
+    # window in ms that the first arrival of a signature (the leader)
+    # waits for batch-mates with its runner slot released
+    ragged_batch_rows: int = _env_int("TRINO_TPU_RAGGED_BATCH_ROWS", 1 << 16)
+    ragged_window_ms: float = _env_float("TRINO_TPU_RAGGED_WINDOW_MS", 3.0)
     # process-wide default for the stream_poll_interval_ms session
     # property: the cadence at which continuous queries re-dispatch
     # their incremental plan (streaming/continuous.py)

@@ -12,9 +12,11 @@ split, as over a generated one. Reads return the chunks as they are,
 with no host round trip; a lane that a join left spilled in host memory
 is moved to the device when it is stored.
 
-Filter and limit pushdown are declined: the connector would have to
-apply them itself, and a filter then runs on the device as the engine's
-own FilterNode instead. ``data_version`` is bumped by every mutation,
+Filter and limit pushdown are accepted, as in the reference, and
+``read_split`` enforces them on each chunk on the device
+(``tpch_device.device_filter``): a split's limit caps that chunk only,
+and the planner keeps its LimitNode above the scan, which caps the
+table. ``data_version`` is bumped by every mutation,
 and ``snapshot_state`` keeps references to the stored chunks (chunks are
 never written in place), which is what ROLLBACK restores.
 """
@@ -66,6 +68,10 @@ class MemoryConnector(Connector):
         entry = self._tables.get((schema, table))
         return entry[0] if entry else None
 
+    def create_schema(self, schema: str) -> None:
+        self._schemas.add(schema)
+        self._version += 1
+
     def create_table(self, metadata: TableMetadata) -> None:
         key = (metadata.schema, metadata.name)
         if key in self._tables:
@@ -114,7 +120,21 @@ class MemoryConnector(Connector):
             want = set(columns)
             return empty_batch({c.name: c.type for c in meta.columns
                                 if c.name in want}, self.device)
-        return chunks[split.part].select_columns(list(columns))
+        chunk = chunks[split.part]
+        h = split.handle
+        if h.constraint is not None or h.limit is not None:
+            from .tpch_device import device_filter
+            chunk = device_filter(chunk, h.constraint, h.limit)
+        return chunk.select_columns(list(columns))
+
+    # --- pushdown (ConnectorMetadata.applyFilter/applyLimit) -------------
+    def apply_filter(self, handle: TableHandle, constraint):
+        from ..catalog import accept_filter_pushdown
+        return accept_filter_pushdown(handle, constraint)
+
+    def apply_limit(self, handle: TableHandle, limit: int):
+        from ..catalog import accept_limit_pushdown
+        return accept_limit_pushdown(handle, limit)
 
     def table_row_count(self, handle: TableHandle) -> Optional[float]:
         entry = self._tables.get((handle.schema, handle.table))

@@ -256,8 +256,9 @@ def device_filter(batch: Batch, constraint, limit: Optional[int]) -> Batch:
     """Apply an accepted TupleDomain + limit to a device-resident batch
     without a host round trip. Dictionary columns evaluate the domain
     once per dictionary value on the host, then gather the per-code
-    verdicts; numeric columns turn ranges into comparisons. Generator
-    columns carry no NULLs."""
+    verdicts; numeric columns turn ranges into comparisons. A NULL row
+    (a memory table's; generator columns carry none) is kept when the
+    domain allows NULL, as ``Domain.mask_for`` keeps it."""
     from ..ops import compact
     if constraint is not None and constraint.is_none:
         return Batch(batch.columns, 0)
@@ -273,8 +274,11 @@ def device_filter(batch: Batch, constraint, limit: Optional[int]) -> Batch:
                     np.arange(len(vals)), None,
                     lambda cds, v=vals: v[np.clip(
                         cds.astype(np.int64), 0, len(v) - 1)])
-                m = take_clamped(torch.from_numpy(np.asarray(tbl, bool))
-                                 .to(c.device), c.data)
+                # an empty dictionary: every row is NULL
+                m = (take_clamped(torch.from_numpy(np.asarray(tbl, bool))
+                                  .to(c.device), c.data) if len(vals)
+                     else torch.zeros(c.capacity, dtype=torch.bool,
+                                      device=c.device))
             else:
                 m = torch.zeros(c.capacity, dtype=torch.bool,
                                 device=c.device)
@@ -287,6 +291,8 @@ def device_filter(batch: Batch, constraint, limit: Optional[int]) -> Batch:
                         rm &= ((c.data <= r.high) if r.high_inclusive
                                else (c.data < r.high))
                     m |= rm
+            if c.valid is not None:
+                m = torch.where(c.valid, m, dom.null_allowed)
             mask = mask & m
         batch = compact.filter_batch(batch, mask)
     if limit is not None:

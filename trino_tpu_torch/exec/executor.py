@@ -75,13 +75,15 @@ from ..ops.groupby import (COMBINABLE_KINDS, AggInput, _changes, _key_lanes,
 from ..ops.hashing import GOLDEN, hash_column, mix64, shr, to_signed_order
 from ..ops.hll import APPROX_SET_BUCKET_BITS, bucket_bits_for_error
 from ..plan.nodes import (Aggregate, AggregationNode, AssignUniqueIdNode,
-                          EnforceSingleRowNode, FilterNode, GroupIdNode,
-                          JoinClause, JoinNode, LimitNode, MarkDistinctNode,
+                          EnforceSingleRowNode, ExchangeNode, FilterNode,
+                          GroupIdNode, JoinClause, JoinNode, LimitNode,
+                          MarkDistinctNode,
                           OffsetNode, OutputNode, PartitionedOutputNode,
                           PlanNode, ProjectNode, RemoteSourceNode,
                           SampleNode, SemiJoinNode, SetOpNode, SortNode,
                           TableScanNode, TopNNode, UnionNode, UnnestNode,
                           ValuesNode, WindowNode)
+from ..obs.metrics import METRICS
 from ..planner.logical import SemiJoinMultiNode
 from ..rex import Call, InputRef, and_all
 from ..session import Session
@@ -92,13 +94,21 @@ from .expr import EvalError, eval_expr, eval_predicate
 from .scancache import (cache_memory_bytes, col_bytes, evict_cache_pressure,
                         read_split_cached, read_table_cached)
 from .streamjoin import (_row_bytes, agg_chunk_capacity, check_interrupt,
-                         host_scan_chunks, maybe_stream_chain,
-                         maybe_stream_join, run_streamed)
+                         host_scan_chunks, make_chain_runner,
+                         maybe_stream_chain, maybe_stream_join, run_streamed)
 from .window import execute_window, window_recordable
 
 # position lanes that carry probe / build row numbers through a residual
 # filter, so outer rows whose matches all failed can be null-extended
 _PPOS, _BPOS = "__probe_pos$", "__build_pos$"
+
+# process metrics (obs/metrics.py; scraped at GET /metrics), a step per
+# split or spilled chunk, never per row
+SPILL_BYTES = METRICS.counter(
+    "trino_tpu_spill_bytes_total",
+    "Bytes written to host RAM by oversized-join spill")
+SPLITS_READ = METRICS.counter(
+    "trino_tpu_splits_read_total", "Table splits read by the executor")
 
 
 class QueryError(Exception):
@@ -321,6 +331,11 @@ class Executor:
         self.stream_wait_ms: float = 0.0
         self.stream_ops: Dict[str, int] = {}
         self.stream_s: float = 0.0
+        # ragged multi-query batching (exec/taskexec.py RaggedBatcher):
+        # chains this query served through a co-batched group, exported
+        # in worker task status (raggedBatched) and rolled up by the
+        # remote and stage schedulers
+        self.ragged_batched: int = 0
         # the hot-shape registry's chain hook (exec/hotshapes.py): the
         # source node of a chain of row-local nodes -> the chain's
         # canonical program, recorded once the source's output is known;
@@ -404,6 +419,8 @@ class Executor:
             out = None
             if isinstance(node, (FilterNode, ProjectNode)):
                 out = maybe_stream_chain(self, node)
+                if out is None:
+                    out = self._try_ragged_chain(node)
             if isinstance(node, AggregationNode):
                 out = self._try_streaming_aggregation(node)
                 if out is None:
@@ -450,6 +467,138 @@ class Executor:
         if canon is not None:
             self._chain_bases[id(cur)] = canon
             self._chain_members.update(id(n) for n in chain[1:])
+
+    # ------------------------------------------------------------------
+    # ragged multi-query batching: compatible small Filter/Project chains
+    # of CONCURRENT queries coalesce into one combined batch that the
+    # chain's canonical nodes run over once, with a per-row provenance
+    # lane (progkey.RAGGED_LANE) demuxing the result rows back to each
+    # owning query. Each participant records its own ragged_batch span
+    # and bumps its own counter; the leader's executor carries the
+    # batch's memory reservation (an over-budget batch fails formation
+    # for everyone, who then run solo under their own budgets).
+    # ------------------------------------------------------------------
+    def _try_ragged_chain(self, node: PlanNode) -> Optional[Batch]:
+        """With ``ragged_batching`` on, run the Filter/Project chain that
+        ``node`` tops over its source's output, offered for co-batching
+        first; None leaves the node to its own handler (the property is
+        off, ``node`` is a lower member of a chain, or the chain holds
+        another kind of node or falls outside the canonical subset)."""
+        session = self.session
+        try:
+            if not bool(session.get("ragged_batching")):
+                return None
+            max_rows = int(session.get("ragged_batch_max_rows")) \
+                or CONFIG.ragged_batch_rows
+        except (KeyError, TypeError, ValueError):
+            return None
+        if id(node) in self._chain_members:
+            return None
+        chain: List[PlanNode] = []
+        cur = node
+        while isinstance(cur, _CHAIN_NODES):
+            chain.append(cur)
+            cur = cur.source
+        # only pure Filter/Project chains batch: Limit/Sort/TopN/Sample/
+        # MarkDistinct have per-query cross-row semantics that break
+        # under concatenation
+        if not all(isinstance(nd, (FilterNode, ProjectNode))
+                   for nd in chain):
+            return None
+        from .progkey import canonicalize_nodes
+        canon = canonicalize_nodes(chain)
+        if canon is None:
+            return None
+        # the solo chain stays the hot shape (recorded at its source); its
+        # lower members run here, not through execute
+        self._note_chain(node)
+        self._chain_members.difference_update(id(nd) for nd in chain)
+        base = self.execute(cur)
+        out = self._offer_ragged(canon, base, max_rows)
+        if out is None:
+            out = make_chain_runner(self, chain)(base)
+        return out
+
+    def _offer_ragged(self, canon, base: Batch,
+                      max_rows: int) -> Optional[Batch]:
+        """This query's rows of a ragged batch that served the chain
+        (named as the plan names them), or None to run it solo."""
+        binding = canon.binding(base)
+        cb = binding.rename_in(base)
+        n = cb.num_rows
+        if not isinstance(n, int):
+            return None     # a device-resident count: reading it to form
+            #                 a batch would stall the queue of launches
+        # leave room for at least one batch-mate
+        if n <= 0 or n * 2 > max_rows:
+            return None
+        if any(c.elements is not None or c.children is not None
+               for c in cb.columns.values()):
+            return None     # nested lanes: their concatenation packs
+            #                 pools on the host, not worth it
+        # compatibility: canonical program, catalog (one connector a
+        # batch), column layout (one canonical key over DIFFERENT tables
+        # can carry different types) and device
+        sig = (canon.key, self.session.catalog,
+               tuple((name, repr(c.type)) for name, c in cb.columns.items()),
+               str(cb.device))
+        from .taskexec import ragged_batcher
+        t0 = time.perf_counter()
+        ok, out = ragged_batcher().submit(
+            sig, n, cb, lambda items: self._run_ragged_group(canon, items),
+            wait=getattr(self.session, "slot_wait", None),
+            max_rows=max_rows)
+        if not ok:
+            return None
+        self.ragged_batched += 1
+        trace = getattr(self.session, "trace", None)
+        if trace is not None:
+            trace.record("ragged_batch", t0, time.perf_counter(), rows=n)
+        return binding.rename_out(out)
+
+    def _run_ragged_group(self, canon, items: List[Batch]) -> List[Batch]:
+        """The leader's group run: the members' canonical batches
+        concatenated with a provenance lane, the canonical nodes run once
+        over the combined batch, and each member's rows gathered back in
+        their order."""
+        from .progkey import RAGGED_LANE, ragged_nodes
+        ns = [b.num_rows_host() for b in items]
+        total = sum(ns)
+        cap = capacity_for(max(total, 1), minimum=8)
+        # reserve before allocating, on the leader: a batch the leader's
+        # query cannot afford fails formation, and every member then runs
+        # solo under its own budget
+        self._reserve(cap, len(items[0].columns) + 1, "ragged batch")
+        combined = device_concat(items)
+        dev = combined.device
+        # each row's owner; padding rows carry the sentinel len(items),
+        # which no member's demux selects
+        lane = torch.repeat_interleave(
+            torch.arange(len(items) + 1, dtype=torch.int64, device=dev),
+            torch.tensor(ns + [combined.capacity - total],
+                         dtype=torch.int64, device=dev),
+            output_size=combined.capacity)
+        out = make_chain_runner(self, ragged_nodes(canon.nodes))(Batch(
+            {**combined.columns, RAGGED_LANE: Column(BIGINT, lane, None)},
+            total))
+        # demux: ONE read of the lane to the host, then a gather a member.
+        # Filter compaction is stable and the members' input rows are
+        # contiguous, so each member's rows keep their solo order.
+        n_out = out.num_rows_host()
+        owner = out.column(RAGGED_LANE).data[:n_out].cpu().numpy()
+        order = np.argsort(owner, kind="stable")
+        counts = np.bincount(owner, minlength=len(items))[:len(items)]
+        caps = [capacity_for(int(k), minimum=8) for k in counts]
+        idx = np.zeros(sum(caps), dtype=np.int64)
+        starts = np.concatenate(([0], np.cumsum(counts)))
+        offs = np.concatenate(([0], np.cumsum(caps)))
+        for i, k in enumerate(counts):
+            idx[offs[i]:offs[i] + k] = order[starts[i]:starts[i] + k]
+        idx_dev = torch.from_numpy(idx).to(dev)
+        bare = Batch({k: c for k, c in out.columns.items()
+                      if k != RAGGED_LANE}, out.num_rows)
+        return [bare.gather(idx_dev[offs[i]:offs[i] + caps[i]], int(k))
+                for i, k in enumerate(counts)]
 
     def _check_device(self, b: Batch, what: str) -> None:
         dev = self.device
@@ -510,6 +659,7 @@ class Executor:
         check_interrupt(self.session)
         t0 = time.perf_counter()
         b = read_split_cached(conn, split, columns).to(device or self.device)
+        SPLITS_READ.inc()
         self.count_input(b)
         on_split = getattr(self.session, "on_split", None)
         if on_split is not None:
@@ -682,6 +832,11 @@ class Executor:
         return Batch({sym: whole.column(col)
                       for sym, col in node.assignments.items()},
                      whole.num_rows)
+
+    def _exec_ExchangeNode(self, node: ExchangeNode) -> Batch:
+        # one process: an exchange is the identity (the stage DAG and the
+        # mesh move rows between tasks and shards)
+        return self.execute(node.source)
 
     def _exec_PartitionedOutputNode(self, node: PartitionedOutputNode
                                     ) -> Batch:
@@ -1057,8 +1212,9 @@ class Executor:
                 if chunk_rows == 0:
                     continue
             spilled = _to_host(out, chunk_rows)
-            self.spilled_bytes += sum(col_bytes(c)
-                                      for c in spilled.columns.values())
+            nbytes = sum(col_bytes(c) for c in spilled.columns.values())
+            self.spilled_bytes += nbytes
+            SPILL_BYTES.inc(nbytes)
             chunks.append(spilled)
         if not chunks:
             empty = _to_host(join_ops.expand_join(

@@ -10,7 +10,8 @@ cache (exec/resultcache.py), the learned statistics
 registry (exec/hotshapes.py) share. A ``Binding`` renames a plan's
 columns to the canonical names and back; ``wire_fragment`` and
 ``peel_wire_fragment`` carry a canonical stack in plan/serde's wire form
-(the pre-warm's payload, exec/aot.py). Constant
+(the pre-warm's payload, exec/aot.py); ``ragged_nodes`` threads the
+ragged batch's provenance lane through one (exec/executor.py). Constant
 literals are canonicalized to their typed planner values but never
 erased: different constants are different programs.
 """
@@ -245,6 +246,34 @@ class CanonicalProgram:
         for nd in reversed(self.nodes):
             body = dc_replace(nd, source=body)
         return to_jsonable(body)
+
+
+# ---- ragged multi-query batching (exec/taskexec.py RaggedBatcher +
+# exec/executor.py _try_ragged_chain) ---------------------------------
+
+# per-row provenance lane of a ragged batch: which co-batched query (by
+# part index) owns the row. Prefixed so that it can never collide with a
+# canonical (c<i>) or extension (x<i>) symbol.
+RAGGED_LANE = "__rq"
+
+
+def ragged_nodes(nodes_top_down: Sequence[PlanNode]) -> List[PlanNode]:
+    """Thread the provenance lane through a canonical chain: the lane
+    rides every FilterNode for free (a filter gathers ALL columns), but a
+    ProjectNode drops unreferenced columns, so each one re-emits the lane
+    as a pass-through assignment. Callers gate batchability to
+    Filter/Project chains (Limit/Sort/TopN/Sample have per-query
+    cross-row semantics that break under concatenation)."""
+    from ..types import BIGINT
+    out: List[PlanNode] = []
+    for nd in nodes_top_down:
+        if isinstance(nd, ProjectNode):
+            out.append(dc_replace(nd, assignments={
+                **nd.assignments,
+                RAGGED_LANE: InputRef(RAGGED_LANE, BIGINT)}))
+        else:
+            out.append(nd)
+    return out
 
 
 def peel_wire_fragment(root: PlanNode) -> Tuple[List[PlanNode], Dict]:

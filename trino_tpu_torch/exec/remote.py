@@ -145,6 +145,9 @@ class RemoteScheduler:
         self.spill_bytes = 0
         self.stream_chunks = 0
         self.stream_h2d_bytes = 0
+        # ragged batching: chains this query's tasks served through
+        # co-batched groups (worker status raggedBatched)
+        self.ragged_batched = 0
         # scheduler attribution rollup: thread-CPU seconds the
         # workers' split schedulers accounted to this query's tasks,
         # summed per fragment/stage for the EXPLAIN ANALYZE rollup and
@@ -917,6 +920,8 @@ class RemoteScheduler:
                         self.stream_h2d_bytes += int(
                             status.get("streamH2dBytes") or 0)
                         self.cpu_seconds += cpu_s
+                        self.ragged_batched += int(
+                            status.get("raggedBatched") or 0)
                         self.fragment_cpu[f.fid] = \
                             self.fragment_cpu.get(f.fid, 0.0) + cpu_s
                     if trace is not None:
@@ -1411,6 +1416,7 @@ class DistributedHostQueryRunner:
         res.stream_chunks = sched.stream_chunks
         res.stream_h2d_bytes = sched.stream_h2d_bytes
         res.cpu_seconds = sched.cpu_seconds
+        res.ragged_batched = sched.ragged_batched
         res.speculative_wins = sched.speculative_wins
         # canonical plan key for the history record / learned stats
         # (exec/learnedstats.py): computed from the OPTIMIZED root
@@ -1484,6 +1490,7 @@ class DistributedHostQueryRunner:
         res.stream_chunks = sched.stream_chunks
         res.stream_h2d_bytes = sched.stream_h2d_bytes
         res.cpu_seconds = sched.cpu_seconds
+        res.ragged_batched = sched.ragged_batched
         return res
 
 

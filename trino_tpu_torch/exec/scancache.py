@@ -43,6 +43,10 @@ _M_SCAN = METRICS.counter(
     "trino_tpu_scan_cache_total",
     "HBM-resident scan cache lookups by granularity and outcome",
     ("cache", "result"))
+# the bytes each connector's cache holds, set wherever they change
+_M_SCAN_BYTES = METRICS.gauge(
+    "trino_tpu_scan_cache_bytes",
+    "Bytes of table lanes resident in the scan cache", ("connector",))
 
 _SCAN_CACHES: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 _SCAN_CACHE_LOCK = threading.Lock()
@@ -63,9 +67,15 @@ def col_bytes(c: Column) -> int:
 def _state(conn) -> dict:
     state = _SCAN_CACHES.get(conn)
     if state is None:
-        state = {"entries": {}, "order": [], "bytes": 0}
+        state = {"entries": {}, "order": [], "bytes": 0,
+                 "label": getattr(conn, "name", type(conn).__name__)}
         _SCAN_CACHES[conn] = state
     return state
+
+
+def _add_bytes(state: dict, delta: int) -> None:
+    state["bytes"] += delta
+    _M_SCAN_BYTES.set(state["bytes"], connector=state["label"])
 
 
 def _drop(state: dict, key) -> int:
@@ -73,7 +83,7 @@ def _drop(state: dict, key) -> int:
     state["order"].remove(key)
     old = state["entries"].pop(key)
     size = sum(col_bytes(c) for c in old["cols"].values())
-    state["bytes"] -= size
+    _add_bytes(state, -size)
     return size
 
 
@@ -96,7 +106,7 @@ def _insert(state: dict, key, batch: Batch) -> None:
     for name, col in batch.columns.items():
         if name not in entry["cols"]:
             entry["cols"][name] = col
-            state["bytes"] += col_bytes(col)
+            _add_bytes(state, col_bytes(col))
 
 
 def _lookup(state: Optional[dict], key, columns) -> Optional[Batch]:
@@ -199,6 +209,8 @@ def evict_cache_pressure(need_bytes: int) -> int:
 def clear() -> None:
     """Empty every scan cache."""
     with _SCAN_CACHE_LOCK:
+        for state in _SCAN_CACHES.values():
+            _add_bytes(state, -state["bytes"])
         _SCAN_CACHES.clear()
 
 

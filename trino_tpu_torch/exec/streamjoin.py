@@ -49,6 +49,7 @@ import torch
 from ..columnar import (Batch, Column, StringDictionary, batch_from_pylist,
                         map_row_lanes)
 from ..config import CONFIG, capacity_for
+from ..obs.metrics import STREAM_CHUNKS, STREAM_H2D_BYTES, STREAM_OVERLAPPED
 from ..plan.nodes import (FilterNode, JoinNode, PlanNode, ProjectNode,
                           TableScanNode)
 from ..rex import Call, InputRef, and_all
@@ -356,6 +357,11 @@ def run_streamed(ex, op: str, host_iter: Iterable[Batch],
         cur = nxt
         nchunks += 1
     hidden, copy_ms, wait_ms = overlap(windows)
+    if nchunks:
+        STREAM_CHUNKS.inc(nchunks, op=op)
+        STREAM_H2D_BYTES.inc(h2d)
+        if hidden:
+            STREAM_OVERLAPPED.inc(hidden)
     ex.stream_chunks += nchunks
     ex.stream_h2d_bytes += h2d
     ex.stream_overlapped += hidden
@@ -399,11 +405,13 @@ def make_chain_runner(ex, chain: Sequence[PlanNode]):
 def _spill(ex, out: Batch, outs: List[Batch]) -> int:
     """Copy a chunk's output rows to host memory (counted as spill);
     returns the rows."""
-    from .executor import _to_host
+    from .executor import SPILL_BYTES, _to_host
     n = out.num_rows_host()
     if n:
         host = _to_host(out, n)
-        ex.spilled_bytes += _batch_nbytes(host)
+        nbytes = _batch_nbytes(host)
+        ex.spilled_bytes += nbytes
+        SPILL_BYTES.inc(nbytes)
         outs.append(host)
     return n
 

@@ -1,8 +1,9 @@
 """Worker-side multi-query task scheduler: the shared split runner pool.
 
-Counterpart of ``trino_tpu/exec/taskexec.py`` (host only, without the
-ragged multi-query batcher, which serves the JAX engine's compiled
-chain programs; the port has none).
+Counterpart of ``trino_tpu/exec/taskexec.py`` (host only), with the
+ragged multi-query batcher at its end (``RaggedBatcher``): the JAX
+engine runs a co-batched group through one compiled program, the port
+runs the chain's nodes once, eagerly, over the combined batch.
 
 Reference parity: execution/executor/TaskExecutor.java — a fixed pool
 of runner threads time-slices ALL concurrent queries' drivers on 1s
@@ -446,3 +447,168 @@ class TaskExecutor:
             max(self._group_handles.get(h.group, 1) - 1, 0)
         self._open -= 1
         TASK_SCHED_RUNNABLE.set(self._open)
+
+
+# ---------------------------------------------------------------------
+# Ragged multi-query batching: coalesce compatible small fragments from
+# CONCURRENT queries into one batch that the chain's nodes run over once
+# (the LLM-serving playbook, ragged per-request rows through one pass,
+# applied to point-lookup storms). The batcher only groups; combining the
+# inputs, running the chain and demuxing rows back per query is the
+# caller's ``run_group`` closure (exec/executor.py _try_ragged_chain), so
+# this module stays import-cycle-free.
+
+from ..obs.metrics import METRICS  # noqa: E402
+
+RAGGED_BATCHES = METRICS.counter(
+    "trino_tpu_ragged_batch_batches_total",
+    "Ragged batches executed (>= 2 co-batched fragments each)")
+RAGGED_QUERIES = METRICS.counter(
+    "trino_tpu_ragged_batch_queries_total",
+    "Fragments served through a ragged batch")
+RAGGED_ROWS = METRICS.counter(
+    "trino_tpu_ragged_batch_rows_total",
+    "Live input rows through ragged batches")
+RAGGED_FALLBACKS = METRICS.counter(
+    "trino_tpu_ragged_batch_fallbacks_total",
+    "Fragments that fell back to solo execution, by reason "
+    "(solo_window | capacity | error | timeout)",
+    labelnames=("reason",))
+RAGGED_BATCH_SIZE = METRICS.histogram(  # tt-lint: ignore[metric-naming] count-valued distribution — fragments per batch have no time/byte unit
+    "trino_tpu_ragged_batch_size",
+    "Co-batched fragments per executed ragged batch",
+    buckets=(2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0))
+
+
+class _RaggedGroup:
+    __slots__ = ("sig", "items", "rows", "open", "done", "results")
+
+    def __init__(self, sig: tuple, item, rows: int):
+        self.sig = sig
+        self.items = [item]
+        self.rows = rows
+        self.open = True
+        self.done = threading.Event()
+        self.results: Optional[list] = None
+
+
+def _wait_inline(fn, *args, **kwargs):
+    return fn(*args, **kwargs)
+
+
+class RaggedBatcher:
+    """Batch formation at the quantum boundary. The FIRST fragment of a
+    signature becomes the batch LEADER: it parks for the formation window
+    (slot released through ``wait``), then closes the group and executes
+    all members' inputs as one batch. Joiners park until the leader
+    publishes results. Every wait routes through the caller's ``wait``
+    hook (TaskHandle.run_blocked on a scheduled worker): members holding
+    every runner slot would otherwise deadlock the leader's re-acquire.
+
+    Failure isolation: ``run_group`` raising fails NO ONE here: the group
+    publishes no results and every member (leader included) falls back to
+    solo execution on its own thread, where the actual offender re-raises
+    its own error and innocents succeed."""
+
+    def __init__(self, window_s: float, max_rows: int) -> None:
+        self.window_s = max(float(window_s), 0.0)
+        self.max_rows = max(int(max_rows), 1)
+        self._lock = threading.Lock()
+        self._groups: Dict[tuple, _RaggedGroup] = {}
+
+    def submit(self, sig: tuple, rows: int, item, run_group,
+               wait=None, max_rows: Optional[int] = None,
+               member_timeout_s: float = 600.0):
+        """Offer one fragment for co-batching.
+
+        ``sig``   canonical-program compatibility signature
+        ``rows``  the fragment's live row count
+        ``item``  opaque payload handed to ``run_group``
+        ``run_group(items) -> [result, ...]`` executes a closed group
+                  (leader's thread) and returns per-item results
+        ``wait``  slot-releasing call hook (session.slot_wait); None
+                  waits inline
+
+        Returns ``(True, result)`` when the fragment was served by a
+        ragged batch, ``(False, None)`` when the caller must run solo.
+        """
+        cap = min(self.max_rows, max_rows or self.max_rows)
+        if rows > cap:
+            RAGGED_FALLBACKS.inc(reason="capacity")
+            return False, None
+        waiter = wait or _wait_inline
+        with self._lock:
+            g = self._groups.get(sig)
+            if g is not None and g.open and g.rows + rows <= cap:
+                idx = len(g.items)
+                g.items.append(item)
+                g.rows += rows
+                joined = g
+            elif g is not None:
+                # a same-sig group exists but is closed or full: joining
+                # would race its execution, so run solo
+                RAGGED_FALLBACKS.inc(reason="capacity")
+                return False, None
+            else:
+                joined = None
+                g = _RaggedGroup(sig, item, rows)
+                self._groups[sig] = g
+        if joined is not None:
+            # member: park (slot released) until the leader publishes
+            ok = waiter(g.done.wait, member_timeout_s)
+            if not ok:
+                RAGGED_FALLBACKS.inc(reason="timeout")
+                return False, None
+            if g.results is None:
+                RAGGED_FALLBACKS.inc(reason="error")
+                return False, None
+            return True, g.results[idx]
+        # leader: formation window with the slot released, then close
+        if self.window_s > 0:
+            waiter(time.sleep, self.window_s)
+        with self._lock:
+            g.open = False
+            self._groups.pop(sig, None)
+        if len(g.items) == 1:
+            # nobody showed up: run solo, no demux overhead
+            g.done.set()
+            RAGGED_FALLBACKS.inc(reason="solo_window")
+            return False, None
+        try:
+            results = run_group(list(g.items))
+            if results is None or len(results) != len(g.items):
+                raise RuntimeError(
+                    f"ragged run_group returned "
+                    f"{0 if results is None else len(results)} results "
+                    f"for {len(g.items)} items")
+            g.results = results
+        except Exception:           # noqa: BLE001 — isolation: the
+            g.results = None        # whole group degrades to solo
+            RAGGED_FALLBACKS.inc(reason="error")
+            return False, None
+        finally:
+            g.done.set()
+        RAGGED_BATCHES.inc()
+        RAGGED_QUERIES.inc(len(g.items))
+        RAGGED_ROWS.inc(g.rows)
+        RAGGED_BATCH_SIZE.observe(float(len(g.items)))
+        return True, g.results[0]
+
+
+_RAGGED: Optional[RaggedBatcher] = None
+_RAGGED_INIT_LOCK = threading.Lock()
+
+
+def ragged_batcher() -> RaggedBatcher:
+    """Process-wide batcher (config-sized): every executor in the process
+    offers through one instance, so fragments of DIFFERENT queries can
+    meet."""
+    global _RAGGED
+    if _RAGGED is None:
+        with _RAGGED_INIT_LOCK:
+            if _RAGGED is None:
+                from ..config import CONFIG
+                _RAGGED = RaggedBatcher(
+                    CONFIG.ragged_window_ms / 1000.0,
+                    CONFIG.ragged_batch_rows)
+    return _RAGGED

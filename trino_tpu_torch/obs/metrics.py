@@ -374,6 +374,20 @@ EXCHANGE_ICI_EDGES = METRICS.counter(
     "Stage-boundary exchanges lowered to in-slice device collectives",
     ("kind",))
 
+# streamed operators (exec/streamjoin.py run_streamed): registered here,
+# not in the streaming module, so that every consumer sees the same
+# labeled families whatever it imported first
+STREAM_CHUNKS = METRICS.counter(
+    "trino_tpu_stream_chunks_total",
+    "Chunks processed by morsel-streamed operators", ("op",))
+STREAM_H2D_BYTES = METRICS.counter(
+    "trino_tpu_stream_bytes_h2d_total",
+    "Bytes moved host->device by streamed-operator chunk transfers")
+STREAM_OVERLAPPED = METRICS.counter(
+    "trino_tpu_stream_transfers_overlapped_total",
+    "Chunk transfers issued while the previous chunk's compute was "
+    "still in flight (the double-buffer overlap)")
+
 STAGES_SCHEDULED = METRICS.counter(
     "trino_tpu_stages_scheduled_total",
     "Worker stages dispatched by the stage-DAG scheduler")

@@ -96,6 +96,9 @@ class QueryResult:
     stream_copy_ms: float = 0.0
     stream_wait_ms: float = 0.0
     stream_ops: Dict[str, int] = field(default_factory=dict)
+    # chains served through a ragged multi-query batch (exec/taskexec.py
+    # RaggedBatcher, with the ragged_batching session property on)
+    ragged_batched: int = 0
     # on a mesh (exec/distributed.py): each sharded scan's rows per shard
     shard_rows: List[List[int]] = field(default_factory=list)
     # telemetry (/v1/query, EXPLAIN ANALYZE, the query history): the
@@ -296,6 +299,7 @@ class LocalQueryRunner:
                            stream_copy_ms=ex.stream_copy_ms,
                            stream_wait_ms=ex.stream_wait_ms,
                            stream_ops=dict(ex.stream_ops),
+                           ragged_batched=ex.ragged_batched,
                            shard_rows=list(getattr(ex, "scan_shard_rows",
                                                    [])),
                            plan_lines=plan_tree_lines(plan))

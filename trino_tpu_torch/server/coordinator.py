@@ -48,6 +48,16 @@ from ..obs.metrics import METRICS
 from ..runner import LocalQueryRunner, QueryResult
 from ..session import Session
 
+
+class HTTPServer(ThreadingHTTPServer):
+    """The port's HTTP servers (coordinator, worker, proxy). socketserver
+    listens with a backlog of 5: a burst of clients past it has connects
+    reset, or dropped and retried by the kernel after 1 s and then 3 s,
+    however short their queries."""
+
+    request_queue_size = 128
+
+
 PAGE_ROWS = 4096     # rows per QueryResults page
 
 # query lifecycle counters (reference: QueryManager JMX stats). One
@@ -765,8 +775,7 @@ class Coordinator:
             jobs_path=os.path.join(hist_dir, "continuous.jsonl"),
             log=self.stream_log, device=self.device)
         self._register_metric_collectors()
-        self._httpd = ThreadingHTTPServer(("127.0.0.1", port),
-                                          _make_handler(self))
+        self._httpd = HTTPServer(("127.0.0.1", port), _make_handler(self))
         self.port = self._httpd.server_address[1]
         # the scan cache's budget (exec/scancache.py) while this
         # coordinator serves: the cache is process-wide, so start() sets

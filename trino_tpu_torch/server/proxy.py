@@ -13,7 +13,7 @@ import json
 import threading
 import urllib.error
 import urllib.request
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from http.server import BaseHTTPRequestHandler
 from typing import Optional
 from urllib.parse import urlparse
 
@@ -23,8 +23,8 @@ class Proxy:
                  shared_secret: Optional[str] = None):
         self.backend = backend_uri.rstrip("/")
         self.shared_secret = shared_secret
-        self._httpd = ThreadingHTTPServer(("127.0.0.1", port),
-                                          _make_handler(self))
+        from .coordinator import HTTPServer
+        self._httpd = HTTPServer(("127.0.0.1", port), _make_handler(self))
         self.port = self._httpd.server_address[1]
         self._thread: Optional[threading.Thread] = None
 

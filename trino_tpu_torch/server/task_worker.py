@@ -28,7 +28,7 @@ import json
 import threading
 import time
 import urllib.request
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from http.server import BaseHTTPRequestHandler
 from typing import Dict, List, Optional
 
 import torch
@@ -195,6 +195,9 @@ class _Task:
         # schedulers next to peak memory
         self.stream_chunks = 0
         self.stream_h2d_bytes = 0
+        # ragged batching (exec/taskexec.py RaggedBatcher): chains this
+        # task served through a co-batched group, rolled up per query
+        self.ragged_batched = 0
         # scheduler attribution: thread-CPU seconds the shared split
         # scheduler accounted to this task's quanta (exec/taskexec.py
         # TaskHandle.cpu_s; a raw thread_time delta without a
@@ -243,6 +246,12 @@ class _Task:
                     weight=float(payload.get("group_weight") or 1.0),
                     cancel=self.cancel_ev)
                 session.split_yield = handle.checkpoint
+                # ragged batch formation (exec/taskexec.py
+                # RaggedBatcher): both the leader's window sleep and a
+                # member's result wait release the runner slot; members
+                # holding every slot would deadlock the leader's
+                # re-acquire
+                session.slot_wait = handle.run_blocked
             # live memory accounting: the executor's reservations land
             # on this task (status beats carry them to the
             # coordinator's pool) and arm worker-local cache relief
@@ -358,6 +367,7 @@ class _Task:
                 self.spill_bytes = ex.spilled_bytes  # tt-lint: ignore[race-attr-write] task-thread-private until done.set() publishes
                 self.stream_chunks = ex.stream_chunks  # tt-lint: ignore[race-attr-write] task-thread-private until done.set() publishes
                 self.stream_h2d_bytes = ex.stream_h2d_bytes  # tt-lint: ignore[race-attr-write] task-thread-private until done.set() publishes
+                self.ragged_batched = ex.ragged_batched  # tt-lint: ignore[race-attr-write] task-thread-private until done.set() publishes
             else:
                 runner = LocalQueryRunner(session=session,
                                           device=self.device,
@@ -719,6 +729,7 @@ class TaskWorkerServer:
                          "spillBytes": t.spill_bytes,
                          "streamChunks": t.stream_chunks,
                          "streamH2dBytes": t.stream_h2d_bytes,
+                         "raggedBatched": t.ragged_batched,
                          "cpuSeconds": t.cpu_seconds,
                          "traceId": t.trace_id}).encode()
                     self.send_response(200)
@@ -772,7 +783,8 @@ class TaskWorkerServer:
                     return
                 self.send_error(404)
 
-        self._httpd = ThreadingHTTPServer(("127.0.0.1", port), Handler)
+        from .coordinator import HTTPServer
+        self._httpd = HTTPServer(("127.0.0.1", port), Handler)
         self.port = self._httpd.server_address[1]
         self.base_uri = f"http://127.0.0.1:{self.port}"
         self._thread: Optional[threading.Thread] = None

@@ -165,10 +165,11 @@ SESSION_PROPERTIES: Dict[str, Tuple[type, object]] = {
     # plan/trace/stats, so interactive EXPLAIN ANALYZE-style workflows
     # keep the default off (dashboards SET it on).
     "result_cache_enabled": (bool, False),
-    # coalesce compatible small fragments (same canonical program key,
-    # same connector, combined rows under ragged_batch_max_rows) into
-    # ONE ragged batch executed by a single compiled program, demuxed
-    # per query. Opt-in: the formation window adds latency to solo
+    # coalesce compatible small Filter/Project chains of concurrent
+    # queries (same canonical program key, same connector, combined rows
+    # under ragged_batch_max_rows) into ONE ragged batch that the chain
+    # runs over once, demuxed per query (exec/taskexec.py
+    # RaggedBatcher). Opt-in: the formation window adds latency to solo
     # queries, so only storm-shaped workloads should enable it.
     "ragged_batching": (bool, False),
     # combined-row cap for one ragged batch (the batch-capacity

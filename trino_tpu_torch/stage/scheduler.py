@@ -473,6 +473,8 @@ class StageExecution:
                     s.stream_h2d_bytes += int(
                         status.get("streamH2dBytes") or 0)
                     s.cpu_seconds += cpu_s
+                    s.ragged_batched += int(
+                        status.get("raggedBatched") or 0)
                     self.stage_cpu[sid] = \
                         self.stage_cpu.get(sid, 0.0) + cpu_s
                     self._windows.append((sid, t0, t1))
