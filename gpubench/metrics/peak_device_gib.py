@@ -1,0 +1,6 @@
+"""peak_device_gib: torch.cuda.max_memory_allocated() over set-up and
+window (reset at the run's start), in GiB."""
+
+
+def read(ctx):
+    return ctx.peak_bytes / 2 ** 30 if ctx.peak_bytes else None
