@@ -124,7 +124,11 @@ _STATS_LINE = re.compile(r"^(\w+): [0-9.]+ms(?:, in (\d+) rows)?"
 
 def analyze_shape(lines):
     """EXPLAIN ANALYZE output without its walls: the plan lines, each
-    node's (name, rows in, rows out), and the trace's span names."""
+    node's (name, rows in, rows out), and the trace's span names. The
+    port's executor spans (``node.<Name>`` a plan node, ``device_wait`` at
+    each host read of the card) have no counterpart in the JAX package's
+    trace: they are held here to the stats lines, one node span a line,
+    and left out of the names."""
     plan, nodes, spans = [], [], []
     section = "plan"
     for line in lines:
@@ -142,4 +146,10 @@ def analyze_shape(lines):
             nodes.append((m.group(1), m.group(2), m.group(3)))
         else:
             spans.append(line.split(":")[0].lstrip(" -"))
+    executed = sorted(n[len("node."):] for n in spans
+                      if n.startswith("node."))
+    if executed:
+        assert executed == sorted(n for n, _, _ in nodes), (executed, nodes)
+    spans = [n for n in spans
+             if not n.startswith("node.") and n != "device_wait"]
     return plan, nodes, spans

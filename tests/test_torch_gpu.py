@@ -208,6 +208,13 @@ def test_q1_on_card_matches_cpu(cuda):
         assert g[:2] == w[:2] and g[-1] == w[-1]
         for a, b in zip(g[2:-1], w[2:-1]):
             assert a == pytest.approx(b, rel=SUM_REL)
+    # node stats: each node's interval on its stream, from its events; the
+    # aggregation launches the kernel, and no interval outlasts the query
+    res = LocalQueryRunner(device=cuda, collect_node_stats=True).execute(q1)
+    assert res.rows == got
+    agg = [s for s in res.stats if s.name == "Aggregation"]
+    assert agg and agg[0].device_s > 0
+    assert all(0 <= s.device_s <= res.wall_s for s in res.stats)
 
 
 @pytest.mark.gpu

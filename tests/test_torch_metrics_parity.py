@@ -14,8 +14,10 @@ identity in one process) and equals the reference.
 """
 
 import dataclasses
-import importlib
-import pkgutil
+import json
+import subprocess
+import sys
+from pathlib import Path
 
 import pytest
 
@@ -48,22 +50,38 @@ SLICE_FAMILIES = {
     "trino_tpu_ragged_batch_rows_total",
     "trino_tpu_ragged_batch_fallbacks_total", "trino_tpu_ragged_batch_size",
 }
+ROOT = Path(__file__).resolve().parent.parent
 MOVED = ["trino_tpu_splits_read_total", "trino_tpu_spill_bytes_total",
          "trino_tpu_scan_cache_bytes", "trino_tpu_stream_chunks_total",
          "trino_tpu_stream_bytes_h2d_total",
          "trino_tpu_stream_transfers_overlapped_total"]
 
 
+# run in a fresh interpreter: the registry is process-wide, and what test
+# files run earlier in the same worker registered must not count
+_FAMILIES = """
+import importlib, json, pkgutil, sys
+pkg = sys.argv[1]
+root = importlib.import_module(pkg)
+for m in pkgutil.walk_packages(root.__path__, pkg + "."):
+    if not m.name.endswith("__main__"):
+        importlib.import_module(m.name)
+reg = importlib.import_module(pkg + ".obs.metrics").METRICS
+print(json.dumps({n: [type(f).__name__, list(f.labelnames), f.help]
+                  for n, f in reg._metrics.items()}))
+"""
+
+
 def _families(pkg: str) -> dict:
     """name -> (kind, labels, help) of every family the package registers
-    once all its modules are imported (some register where they live)."""
-    root = importlib.import_module(pkg)
-    for m in pkgutil.walk_packages(root.__path__, pkg + "."):
-        if not m.name.endswith("__main__"):
-            importlib.import_module(m.name)
-    reg = importlib.import_module(pkg + ".obs.metrics").METRICS
-    return {n: (type(f).__name__, tuple(f.labelnames), f.help)
-            for n, f in reg._metrics.items()}
+    once all its modules are imported (some register where they live),
+    in an interpreter of its own."""
+    out = subprocess.run([sys.executable, "-c", _FAMILIES, pkg],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=str(ROOT), check=True)
+    return {n: (kind, tuple(labels), help_)
+            for n, (kind, labels, help_)
+            in json.loads(out.stdout.splitlines()[-1]).items()}
 
 
 def test_port_registers_every_reference_family():

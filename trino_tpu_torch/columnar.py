@@ -40,6 +40,7 @@ wrapped without a copy as a CPU tensor; ``Batch.to`` moves a batch.
 from __future__ import annotations
 
 import datetime as _dt
+from contextlib import nullcontext
 from dataclasses import dataclass, replace
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
@@ -47,6 +48,7 @@ import numpy as np
 import torch
 
 from .config import DeviceLike, capacity_for, resolve_device
+from .obs.trace import device_wait
 from .types import (BOOLEAN, ArrayType, CharType, DecimalType,
                     GeometryType, MapType, QDigestType, RowType,
                     TDigestType, TimestampTZType, Type, is_string)
@@ -464,12 +466,17 @@ class Batch:
         return self.columns[name]
 
     def num_rows_device(self) -> torch.Tensor:
-        return torch.as_tensor(self.num_rows, dtype=torch.int64,
-                               device=self.device)
+        n = self.num_rows
+        # a host count copied to the card waits for the card's stream
+        with device_wait() if isinstance(n, int) else nullcontext():
+            return torch.as_tensor(n, dtype=torch.int64, device=self.device)
 
     def num_rows_host(self) -> int:
         n = self.num_rows
-        return n if isinstance(n, int) else int(n)
+        if isinstance(n, int):
+            return n
+        with device_wait():
+            return int(n)
 
     def row_valid(self) -> torch.Tensor:
         """iota < num_rows over the capacity."""

@@ -114,13 +114,11 @@ class DistributedExecutor(Executor):
             out = self._try_ici_stages(node)
             if out is not None:
                 return out
-        if not self.collect_stats:
-            return self._dexec(node)
-        return self._stats_wrap(node, lambda: self._dexec(node))
+        return self._run_node(node, self._dexec)
 
-    def _value_rows_bytes(self, out) -> Tuple[int, int]:
+    def _value_rows_bytes(self, out) -> Tuple[list, int]:
         if isinstance(out, ShardedBatch):
-            return (out.total_rows_host(),
+            return ([s.num_rows for s in out.shards],
                     sum(col_bytes(c) for s in out.shards
                         for c in s.columns.values()))
         return super()._value_rows_bytes(out)

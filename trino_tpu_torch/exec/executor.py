@@ -36,7 +36,10 @@ cache (exec/scancache.py) is read whole from it instead.
 Query controls: the session's cancel event and deadline are checked
 before every plan node, split read, streamed chunk and spill chunk
 (EXCEEDED_TIME_LIMIT past the deadline). With ``collect_stats`` every
-node records a ``NodeStats`` (EXPLAIN ANALYZE, /v1/query), and each
+node records a ``NodeStats`` (EXPLAIN ANALYZE, /v1/query), resolved by
+``finish_stats`` once the result is on the host; with a trace on the
+session every node runs inside a ``node.<Name>`` span, and every host
+read of the card inside a ``device_wait`` span (obs/trace.py). Each
 reservation also feeds the coordinator's cluster memory pool when the
 session carries one.
 
@@ -84,6 +87,7 @@ from ..plan.nodes import (Aggregate, AggregationNode, AssignUniqueIdNode,
                           TableScanNode, TopNNode, UnionNode, UnnestNode,
                           ValuesNode, WindowNode)
 from ..obs.metrics import METRICS
+from ..obs.trace import ACTIVE, device_wait
 from ..planner.logical import SemiJoinMultiNode
 from ..rex import Call, InputRef, and_all
 from ..session import Session
@@ -142,11 +146,15 @@ class _Pre(PlanNode):
 
 @dataclass
 class NodeStats:
-    """One plan node's execution: wall time (children included), rows and
-    bytes in and out, thread-CPU time, and a detail note (the streamed
-    chunks). Counterpart of the JAX engine's NodeStats; its compile and
-    cache fields stay at their defaults here (the port compiles no
-    programs), and ``device_s`` is not measured (0)."""
+    """One plan node's execution: wall time (the host's interval,
+    children included), rows and bytes in and out, thread-CPU time, the
+    device interval, and a detail note (the streamed chunks). Counterpart
+    of the JAX engine's NodeStats; its compile and cache fields stay at
+    their defaults here (the port compiles no programs). On a card
+    ``device_s`` is the node's interval on its stream, between events
+    recorded at the node's start and end: under concurrent queries on the
+    shared default stream it also covers the other queries' kernels
+    queued in between. Off a card it is 0."""
     name: str
     detail: str = ""
     wall_s: float = 0.0
@@ -264,7 +272,8 @@ def stats_lines(stats: Sequence[NodeStats]) -> List[str]:
         if st.compile_s > 0:
             parts.append(f"compile {st.compile_s * 1000:.2f}ms")
         if st.device_s > 0:
-            parts.append(f"device {st.device_s * 1000:.2f}ms")
+            parts.append(f"device {st.device_s * 1000:.2f}ms "
+                         "(stream interval)")
         if st.cpu_s > 0:
             parts.append(f"cpu {st.cpu_s * 1000:.2f}ms")
         if st.cache_hit is not None:
@@ -307,11 +316,12 @@ class Executor:
         self.session = session
         self.device = device
         # per-node stats (EXPLAIN ANALYZE, /v1/query): a frame per open
-        # node gathers its input (children's output, split reads); on a
-        # card each node ends with a device synchronisation, so its wall
-        # covers its work
+        # node gathers its input (children's output, split reads). Row
+        # counts still on the card and each node's two events stay
+        # unread until ``finish_stats``
         self.collect_stats = collect_stats
-        self.stats: List[NodeStats] = []
+        self._stats: List[NodeStats] = []
+        self._unresolved: List[tuple] = []
         self._frames: List[dict] = []
         # (probe rows, build rows, output rows) of each join, in the
         # order the joins finish
@@ -362,45 +372,77 @@ class Executor:
 
     def execute(self, node: PlanNode) -> Batch:
         check_interrupt(self.session)
-        if not self.collect_stats:
-            return self._execute_inner(node)
-        return self._stats_wrap(node, lambda: self._execute_inner(node))
+        return self._run_node(node, self._execute_inner)
 
-    def _value_rows_bytes(self, out) -> Tuple[int, int]:
-        """(live rows, lane bytes) of a node's output."""
-        return (out.num_rows_host(),
+    def _run_node(self, node: PlanNode, run):
+        """``run(node)`` inside the node's ``node.<Name>`` span when the
+        session carries a trace (installed on this thread for
+        ``device_wait``), and with its NodeStats when stats are on."""
+        trace = self.session.trace
+        if trace is None:
+            return (self._stats_wrap(node, run) if self.collect_stats
+                    else run(node))
+        prev, ACTIVE.trace = ACTIVE.trace, trace
+        try:
+            with trace.span("node." + _node_name(node)):
+                return (self._stats_wrap(node, run) if self.collect_stats
+                        else run(node))
+        finally:
+            ACTIVE.trace = prev
+
+    @property
+    def stats(self) -> List[NodeStats]:
+        """The NodeStats of every node run, in the order the nodes
+        finished, resolved (``finish_stats``)."""
+        self.finish_stats()
+        return self._stats
+
+    def _value_rows_bytes(self, out) -> Tuple[list, int]:
+        """(live row counts, lane bytes) of a node's output; a count may
+        still be a 0-d tensor on the card."""
+        return ([out.num_rows],
                 sum(col_bytes(c) for c in out.columns.values()))
 
-    def _stats_wrap(self, node: PlanNode, fn):
-        """``fn()`` (the node's execution) with its NodeStats recorded."""
+    def _stats_wrap(self, node: PlanNode, run):
+        """``run(node)`` with its NodeStats recorded: the host's interval
+        and, on a card, two timing events on the current stream. Nothing
+        here waits for the card: ``finish_stats`` reads the row counts
+        and the events once the query's result is on the host."""
         # the streamed chunks and bytes of the node's children, which the
         # node's own count leaves out
-        frame = {"rows": 0, "bytes": 0, "child_chunks": 0, "child_h2d": 0}
+        frame = {"rows": [], "bytes": 0, "child_chunks": 0, "child_h2d": 0}
         self._frames.append(frame)
         chunks0, h2d0 = self.stream_chunks, self.stream_h2d_bytes
+        events = None
+        if self.device.type == "cuda":
+            stream = torch.cuda.current_stream(self.device)
+            events = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            events[0].record(stream)
         t0 = time.perf_counter()
         cpu0 = time.thread_time()
         try:
-            out = fn()
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            out = run(node)
         finally:
             self._frames.pop()
+        if events is not None:
+            events[1].record(stream)
         wall = time.perf_counter() - t0
         cpu_s = max(time.thread_time() - cpu0, 0.0)
-        n, obytes = self._value_rows_bytes(out)
+        rows, obytes = self._value_rows_bytes(out)
         chunks = self.stream_chunks - chunks0
         h2d = self.stream_h2d_bytes - h2d0
         own = chunks - frame["child_chunks"]
         detail = (f"streamed {own} chunks, {h2d - frame['child_h2d']}B h2d"
                   if own else "")
-        self.stats.append(NodeStats(
-            type(node).__name__.replace("Node", ""), detail, wall_s=wall,
-            output_rows=n, input_rows=frame["rows"],
-            input_bytes=frame["bytes"], output_bytes=obytes, cpu_s=cpu_s))
+        st = NodeStats(_node_name(node), detail, wall_s=wall,
+                       input_bytes=frame["bytes"], output_bytes=obytes,
+                       cpu_s=cpu_s)
+        self._stats.append(st)
+        self._unresolved.append((st, rows, frame["rows"], events))
         if self._frames:
             parent = self._frames[-1]
-            parent["rows"] += n
+            parent["rows"].extend(rows)
             parent["bytes"] += obytes
             parent["child_chunks"] += chunks
             parent["child_h2d"] += h2d
@@ -410,9 +452,39 @@ class Executor:
         """Charge a batch read from a connector (a split, a cached table)
         to the current node's input."""
         if self.collect_stats and self._frames:
-            self._frames[-1]["rows"] += b.num_rows_host()
+            self._frames[-1]["rows"].append(b.num_rows)
             self._frames[-1]["bytes"] += sum(
                 col_bytes(c) for c in b.columns.values())
+
+    def finish_stats(self) -> None:
+        """Resolve the recorded NodeStats: every row count still on a
+        device in one stacked read a device, and each node's device
+        interval from its events. Called through ``stats``, once the
+        query's result is on the host (``_run_query`` reads it after
+        ``to_pylist``), so the reads wait for nothing."""
+        if not self._unresolved:
+            return
+        todo, self._unresolved = self._unresolved, []
+        by_dev: Dict[torch.device, List[torch.Tensor]] = {}
+        for _, out, inp, _ in todo:
+            for n in (*out, *inp):
+                if isinstance(n, torch.Tensor):
+                    by_dev.setdefault(n.device, []).append(n)
+        value: Dict[int, int] = {}
+        for ts in by_dev.values():
+            got = torch.stack([t.reshape(()).to(torch.int64)
+                               for t in ts]).tolist()
+            value.update((id(t), v) for t, v in zip(ts, got))
+
+        def total(ns) -> int:
+            return sum(value[id(n)] if isinstance(n, torch.Tensor)
+                       else int(n) for n in ns)
+        for st, out, inp, events in todo:
+            st.output_rows = total(out)
+            st.input_rows = total(inp)
+            if events is not None:
+                events[1].synchronize()
+                st.device_s = events[0].elapsed_time(events[1]) / 1e3
 
     def _execute_inner(self, node: PlanNode) -> Batch:
         try:
@@ -585,7 +657,8 @@ class Executor:
         # Filter compaction is stable and the members' input rows are
         # contiguous, so each member's rows keep their solo order.
         n_out = out.num_rows_host()
-        owner = out.column(RAGGED_LANE).data[:n_out].cpu().numpy()
+        with device_wait():
+            owner = out.column(RAGGED_LANE).data[:n_out].cpu().numpy()
         order = np.argsort(owner, kind="stable")
         counts = np.bincount(owner, minlength=len(items))[:len(items)]
         caps = [capacity_for(int(k), minimum=8) for k in counts]
@@ -992,7 +1065,8 @@ class Executor:
             lens[o] = ln
             count = ln if count is None else torch.maximum(count, ln)
         count = torch.where(live, count, 0)
-        total = int(count.sum())
+        with device_wait():
+            total = int(count.sum())
         out_cap = capacity_for(max(total, 1))
         self._reserve(out_cap, len(node.replicate) + len(arrs) + 1,
                       "unnest output")
@@ -1069,7 +1143,8 @@ class Executor:
                                                         bkeys)
             eff = (torch.where(left.row_valid(), count.clamp(min=1), 0)
                    if outer else count)
-            total = int(eff.sum())
+            with device_wait():
+                total = int(eff.sum())
             if total > CONFIG.max_batch_rows:
                 out = self._oversized_join(left, right, start, count, eff,
                                            order, total, width,
@@ -1094,7 +1169,8 @@ class Executor:
         build = _with_pos(right, _BPOS) if jt == "full" else right
         start, count, order = join_ops.match_counts(probe, build, pkeys,
                                                     bkeys)
-        total = int(count.sum())
+        with device_wait():
+            total = int(count.sum())
         if total > CONFIG.max_batch_rows and jt == "inner":
             return self._oversized_join(probe, build, start, count, count,
                                         order, total, width, "inner",
@@ -1182,7 +1258,8 @@ class Executor:
         guard decides first."""
         if not bool(self.session.get("spill_enabled")):
             self._reserve(total, width, "join output (spill disabled)")
-        cum = np.cumsum(eff.cpu().numpy())
+        with device_wait():
+            cum = np.cumsum(eff.cpu().numpy())
         budget = CONFIG.max_batch_rows
         n_live = probe.num_rows_host()
         dev = probe.device
@@ -1310,7 +1387,8 @@ class Executor:
                                                         fkeys)
         else:
             start, count, order = join_ops.cross_counts(probe, filt)
-        total = int(count.sum())
+        with device_wait():
+            total = int(count.sum())
         self._reserve(total, len(probe.columns) + len(filt.columns),
                       "semi-join candidates")
         cand = join_ops.expand_join(probe, filt, start, count, order,
@@ -1442,6 +1520,11 @@ def sample_mask(cap: int, ratio: float, device: torch.device
     power of two is exact on either device."""
     h = mix64(torch.arange(cap, dtype=torch.int64, device=device))
     return shr(h, 11).to(torch.float64) / float(1 << 53) < ratio
+
+
+def _node_name(node: PlanNode) -> str:
+    """A plan node's name in its NodeStats and its span."""
+    return type(node).__name__.replace("Node", "")
 
 
 def _sort_keys(keys) -> List[sort_ops.SortKey]:

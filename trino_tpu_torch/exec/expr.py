@@ -58,6 +58,7 @@ import torch
 from ..columnar import Batch, Column, StringDictionary, is_nested, \
     key_hi_lane, null_column, take_clamped, torch_dtype
 from ..config import capacity_for
+from ..obs.trace import device_wait
 from ..ops import hll
 from ..ops import int128 as i128
 from ..ops.datetime import add_months, extract_field
@@ -206,8 +207,9 @@ def _codes_through(col: Column, table: np.ndarray) -> torch.Tensor:
     """Gather a host table by the column's code lane, on its device. An
     out-of-range code (-1 marks a literal absent from a dictionary) clamps
     into the table, as ``jnp.take(mode="clip")`` does."""
-    return take_clamped(torch.from_numpy(np.asarray(table))
-                        .to(col.device), col.data)
+    with device_wait():
+        lane = torch.from_numpy(np.asarray(table)).to(col.device)
+    return take_clamped(lane, col.data)
 
 
 def _dict_transform(col: Column, fn: Optional[Callable[[str], object]],
@@ -248,11 +250,14 @@ def _gather_table(table, index: torch.Tensor, valid: Optional[torch.Tensor],
                   out_type: Type) -> Column:
     tbl, d, nulls = table
     dev = index.device
+    with device_wait():
+        lane = torch.from_numpy(tbl).to(dev)
+        if nulls is not None:
+            nulls = torch.from_numpy(nulls).to(dev)
     if nulls is not None:
-        nv = ~take_clamped(torch.from_numpy(nulls).to(dev), index)
+        nv = ~take_clamped(nulls, index)
         valid = nv if valid is None else valid & nv
-    return Column(out_type, take_clamped(torch.from_numpy(tbl).to(dev),
-                                         index), valid, d)
+    return Column(out_type, take_clamped(lane, index), valid, d)
 
 
 def _table_column(out: List, index: torch.Tensor,

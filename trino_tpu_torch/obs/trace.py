@@ -2,8 +2,10 @@
 
 Counterpart of ``trino_tpu/obs/trace.py`` (host only). A ``QueryTrace``
 rides on the Session: the runner opens parse, plan, optimize and
-execute spans, and EXPLAIN ANALYZE and /v1/query render them. Every
-span carries a 128-bit trace id and a 64-bit span id, and a W3C
+execute spans, the executor a ``node.<Name>`` span around each plan node
+and a ``device_wait`` span around each place its thread blocks on the
+card (``device_wait``), and EXPLAIN ANALYZE and /v1/query render them.
+Every span carries a 128-bit trace id and a 64-bit span id, and a W3C
 ``traceparent`` names them, so a worker's subtree can later merge back
 id-preserving (``graft``).
 
@@ -17,6 +19,7 @@ from __future__ import annotations
 import os
 import threading
 import time
+from contextlib import nullcontext
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -302,8 +305,29 @@ def null_span(name: str, **attrs):
     """Drop-in for ``QueryTrace.span`` when no trace is installed —
     callers write ``sp = trace.span if trace else null_span`` and keep
     one code path."""
-    from contextlib import nullcontext
     return nullcontext()
+
+
+_NO_SPAN = nullcontext()
+
+
+class _Active(threading.local):
+    """The trace of the query whose executor runs on this thread, for
+    code that is handed no session (``device_wait``)."""
+    trace: Optional[QueryTrace] = None
+
+
+# installed by exec/executor.py's ``Executor.execute`` around each plan node
+ACTIVE = _Active()
+
+
+def device_wait():
+    """A ``device_wait`` span, on the trace the executing thread has
+    installed, around a host read of a value on the card (a row count, a
+    total, lanes to the host) or any other call that blocks the thread
+    until the card's queue drains; without a trace, a no-op."""
+    trace = ACTIVE.trace
+    return _NO_SPAN if trace is None else trace.span("device_wait")
 
 
 class _SpanCtx:

@@ -45,6 +45,7 @@ import torch
 
 from ..columnar import Batch, Column, key_hi_lane, take_clamped
 from ..config import capacity_for
+from ..obs.trace import device_wait
 from ..types import (BIGINT, DOUBLE, INTEGER, REAL, T_DIGEST, ArrayType,
                      DecimalType, HyperLogLogType, MapType, QDigestType,
                      Type, is_string)
@@ -161,7 +162,8 @@ def group_aggregate(batch: Batch, key_names: Sequence[str],
     # key-change boundaries over the sorted live prefix
     changed = _changes(lanes[1:], order,
                        torch.zeros(cap, dtype=torch.bool, device=dev))
-    changed[0] = True
+    with device_wait():
+        changed[0] = True
     boundary = changed & live_s
     gid = (torch.cumsum(boundary, 0) - 1).clamp(0, gcap - 1)
     num_groups = boundary.sum(dtype=_I64)
@@ -226,7 +228,8 @@ class _Segments:
     def sum_float(self, vals: torch.Tensor) -> torch.Tensor:
         # each group's rows are one run of the sorted order: reduce the
         # runs in a fixed order, with no floating-point atomics
-        lengths = torch.bincount(self.gid, minlength=self.gcap)
+        with device_wait():
+            lengths = torch.bincount(self.gid, minlength=self.gcap)
         return torch.segment_reduce(vals, "sum", lengths=lengths,
                                     unsafe=True)
 

@@ -19,6 +19,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from ..columnar import Batch, Column, take_clamped
+from ..obs.trace import device_wait
 from ..types import is_string
 
 
@@ -42,7 +43,9 @@ def _key_lanes_for(col: Column, asc: bool, nulls_first: bool,
         torch.where(is_null, 0 if nulls_first else 1,
                     1 if nulls_first else 0).to(torch.int32)]
     if is_string(col.type):
-        ranks = torch.from_numpy(col.dictionary.rank_codes()).to(d.device)
+        with device_wait():
+            ranks = torch.from_numpy(col.dictionary.rank_codes()).to(
+                d.device)
         v = take_clamped(ranks, d).to(torch.int64)
         lanes.append(v if asc else -v)
     elif d.is_floating_point():
@@ -99,6 +102,7 @@ def sort_batch(batch: Batch, keys: Sequence[SortKey]) -> Batch:
 def topn_batch(batch: Batch, keys: Sequence[SortKey], n: int) -> Batch:
     """ORDER BY ... LIMIT n: full sort, then truncate."""
     out = sort_batch(batch, keys)
-    count = torch.minimum(out.num_rows_device(), torch.as_tensor(
-        n, dtype=torch.int64, device=out.device))
+    with device_wait():
+        limit = torch.as_tensor(n, dtype=torch.int64, device=out.device)
+    count = torch.minimum(out.num_rows_device(), limit)
     return Batch(out.columns, count)

@@ -19,9 +19,12 @@ Query controls (the JAX runner's): the session's ``cancel`` event and
 its ``deadline`` (from ``query_max_run_time``, stamped by the
 coordinator or, standalone, by ``execute``) are checked before every
 plan node and every streamed chunk. With ``collect_node_stats`` every
-query records a ``NodeStats`` per plan node (a device synchronisation
-ends each node on a card) and a span tree (obs/trace.py); EXPLAIN
-ANALYZE always does, and renders the plan that ran with both.
+query records a ``NodeStats`` per plan node (nothing waits for the card
+until the result is on the host; on a card each node's interval on its
+stream is timed by events) and a span tree (obs/trace.py: a
+``node.<Name>`` span a plan node, a ``device_wait`` span at each host
+read of the card); EXPLAIN ANALYZE always does, and renders the plan that
+ran with both.
 
 Writes keep the data on the device: CREATE TABLE AS, INSERT, DELETE,
 UPDATE and MERGE run their queries through the executor and hand its
